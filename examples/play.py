@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Interactive demo shell: live keyboard input -> engine frames -> terminal.
 
-The TPU analog of the reference's app shell (GameViewController.viewDidLoad
+The analog of the reference's app shell (GameViewController.viewDidLoad
 wiring MTKView -> Renderer -> DemoScene + GameController input,
 reference: Game/GameViewController.swift:24-62, Game/InputSystem.swift:70-149):
 a host loop polls the keyboard in raw mode, builds an InputFrame per frame,
@@ -103,8 +103,8 @@ def main():
                     help="scripted frame count (no TTY; for CI/smoke)")
     args = ap.parse_args()
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from swift_game_engine_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from swift_game_engine_tpu.scene.demo_scene import DemoScene
     from swift_game_engine_tpu.scene.engine import Engine
     from swift_game_engine_tpu.scene.input import InputFrame

@@ -3,7 +3,9 @@
 
 Usage:
   python examples/run_demo.py --frames 4 --width 320 --height 180 \
-      --path rt --out /tmp/frames
+      --path rt --out demo_frames
+
+Needs Pillow (only this example does).
 """
 
 import argparse
@@ -22,15 +24,15 @@ def main():
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=180)
     ap.add_argument("--path", choices=["rt", "raster"], default="rt")
-    ap.add_argument("--out", default="/tmp/frames")
+    ap.add_argument("--out", default="demo_frames")
     ap.add_argument("--layers", type=int, default=3)
     ap.add_argument("--shadow-layers", type=int, default=4)
     ap.add_argument("--no-assets", action="store_true",
                     help="skip imported static assets (smaller scene)")
     args = ap.parse_args()
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+    from swift_game_engine_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from swift_game_engine_tpu.scene.demo_scene import DemoScene
     from swift_game_engine_tpu.scene.engine import Engine

@@ -2,5 +2,5 @@
 # Build the native host components.
 set -e
 cd "$(dirname "$0")"
-g++ -O3 -march=native -shared -fPIC -o libsge_native.so bvh_builder.cpp
+g++ -O3 -shared -fPIC -o libsge_native.so bvh_builder.cpp
 echo "built native/libsge_native.so"

@@ -1,8 +1,8 @@
 // Binned-SAH BVH builder (native host component).
 //
 // The reference engine offloads acceleration-structure builds to Metal's
-// opaque native API (Game/RTAccelerationBuilder.swift); this is the TPU
-// build's equivalent host-side native piece: a C++ binned surface-area-
+// opaque native API (Game/RTAccelerationBuilder.swift); this is the
+// engine's equivalent host-side native piece: a C++ binned surface-area-
 // heuristic builder emitting the engine's preorder + skip-link topology
 // (see swift_game_engine_tpu/render/bvh.py for the array contract).
 // Exposed to Python via ctypes (no pybind11 in this image).

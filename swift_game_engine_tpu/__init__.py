@@ -1,4 +1,4 @@
-"""swift_game_engine_tpu — a TPU-native simulation + rendering framework.
+"""swift_game_engine_tpu — a JAX simulation + rendering framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
 Swift/Metal game engine (kelian343/swift-game-engine): ECS simulation stepped
@@ -12,17 +12,18 @@ Subpackages:
   ecs       — pytree-of-arrays world state
   physics   — vectorized capsule CCD + move-and-slide + agent separation
   render    — LBVH, ray-traced and raster paths, IBL, compositing
-  ops       — Pallas TPU kernels for the hot paths
+  ops       — the GPU BVH traversal kernel (Pallas, Triton route)
   parallel  — device-mesh sharding of the image plane / entity batches
   scene     — demo scene, character factory, input, fixed-step driver
 """
 
 __version__ = "0.1.0"
 
-# TPU matmul precision: geometry pipelines (matrix inverses, ray transforms,
-# FK palettes) are not robust to bf16 matmul accumulation, which is JAX's
-# default for f32 on TPU. The engine requires true f32 matmuls; kernels that
-# genuinely want bf16 opt in with an explicit `preferred_element_type`.
+# Matmul precision: geometry pipelines (matrix inverses, ray transforms,
+# FK palettes) are not robust to TF32, which f32 matmuls may use on NVIDIA
+# GPUs by default (about three decimal digits). The engine requires true
+# f32 matmuls; code that genuinely wants lower precision opts in with an
+# explicit `precision` / `preferred_element_type`.
 import jax as _jax
 
 _jax.config.update("jax_default_matmul_precision", "float32")

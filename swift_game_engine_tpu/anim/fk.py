@@ -1,9 +1,8 @@
 """Level-parallel forward kinematics in translation/quaternion form.
 
 The reference walks bones sequentially, multiplying 4x4 locals by parent
-model transforms (Game/Skeleton.swift:175-203). On TPU that shape is wrong
-twice over: a 65-step sequential chain serializes the vector unit, and 4x4
-matrices pad every op to full tiles. Here:
+model transforms (Game/Skeleton.swift:175-203). On an accelerator that shape
+is wrong: a 65-step sequential chain serializes every bone. Here:
 
   * Rigid transforms are carried as ``(t, q)`` pairs — (B, 3) translations and
     (B, 4) quaternions — so every FK step is a handful of fused elementwise

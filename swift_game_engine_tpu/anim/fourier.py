@@ -3,7 +3,7 @@
 The reference evaluates each bone axis with a scalar loop per call
 (reference: Game/Animation.swift:65-89). Here the whole pose bank is one
 matvec: ``values[B, 6] = coeffs[B, 6, C] @ basis(phase)[C]`` — batched over
-characters and profiles it becomes a single MXU matmul.
+characters and profiles it becomes a single matmul.
 """
 
 from __future__ import annotations

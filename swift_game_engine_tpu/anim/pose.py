@@ -1,6 +1,6 @@
 """Pose stack: locomotion blending, action layer, procedural corrections, FK.
 
-TPU-native re-design of the reference's per-entity pose loop
+Array-native re-design of the reference's per-entity pose loop
 (reference: Game/ProceduralPoseSystem.swift:10-407). Differences in *how*:
 
   * All four locomotion clips live in one stacked coefficient bank
@@ -127,7 +127,7 @@ class SkeletonArrays(NamedTuple):
 
     Rotations are carried as quaternions: the whole pose pipeline runs in
     (t, q) form and 4x4 matrices are materialized exactly once (for the
-    palette) — far fewer ops and no tiny-matrix padding on TPU.
+    palette) — far fewer ops.
     """
 
     inv_bind_model: jnp.ndarray   # (B,4,4)

@@ -1,15 +1,14 @@
-"""Linear-blend skinning as one MXU matmul.
+"""Linear-blend skinning as one matmul.
 
 The reference skins on the GPU with a per-vertex 4-bone gather loop
 (reference: Game/RayTracing.metalinc:737-776 ``skinningKernel``; semantics:
 position by the full 4x4, normal/tangent by the 3x3 block, tangent.w
-passthrough). Gathers are slow on TPU, so the (V, 4) sparse weights are
-pre-expanded to a dense (V, B) matrix (B = 65 bones) and the per-vertex
-skinning matrix becomes
+passthrough). The (V, 4) sparse weights are pre-expanded to a dense (V, B)
+matrix (B = bone count) and the per-vertex skinning matrix becomes
 
     skin_mats[V, 16] = dense_weights[V, B] @ palette[B, 16]
 
-one MXU matmul for the whole mesh (and one batched matmul for all
+one matmul for the whole mesh (and one batched matmul for all
 characters), with the vertex transforms fused by XLA behind it.
 """
 

@@ -54,14 +54,16 @@ class Material:
 
 
 def _load_image(path: str, srgb: bool) -> Optional[Texture]:
+    """Decode a texture file (needs Pillow; only the reference project's
+    materials reference image files). A file that cannot be read is
+    skipped with a diagnostic, like the reference's loader."""
     try:
         from PIL import Image
         img = Image.open(path).convert("RGBA")
-        px = np.asarray(img, np.uint8)
-        return Texture(px, srgb=srgb)
-    except Exception as e:  # pragma: no cover - env dependent
+    except (ImportError, OSError) as e:
         print(f"materials: failed to load texture {path}: {e}")
         return None
+    return Texture(np.asarray(img, np.uint8), srgb=srgb)
 
 
 def _resolve(path: str, base_dir: str, search_roots=()) -> Optional[str]:

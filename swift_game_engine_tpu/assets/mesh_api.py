@@ -3,7 +3,7 @@
 Array-of-structs interleaved vertex buffers (reference:
 Game/VertexLayouts.swift, Game/ProceduralMeshAPI.swift:19-181,
 Game/ProceduralMeshBuilder.swift) become plain struct-of-arrays numpy — the
-natural layout for TPU consumption. Tangents are computed on demand per
+natural layout for device consumption. Tangents are computed on demand per
 Game/MeshTangents.swift semantics (accumulated per-triangle UV-space tangent
 frames, orthonormalized per vertex with handedness in w).
 """
@@ -115,7 +115,7 @@ def simplify_mesh(mesh: MeshDescriptor, target_tris: int) -> MeshDescriptor:
     Quantizes vertices to a uniform grid sized from the triangle budget,
     merges co-located vertices (averaging attributes), and drops collapsed
     triangles. Fast (pure numpy) and topology-free — the right trade for
-    dense scanned assets that must fit the RT kernel's VMEM budget.
+    dense scanned assets under a render triangle budget.
     """
     t = mesh.triangle_count
     if t <= target_tris:

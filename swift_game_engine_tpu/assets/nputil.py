@@ -79,7 +79,7 @@ def quat_from_mat(m: np.ndarray) -> np.ndarray:
 
 
 def topological_levels(parent: np.ndarray) -> list[np.ndarray]:
-    """Group bone indices by depth for level-parallel FK on TPU."""
+    """Group bone indices by depth for level-parallel FK."""
     n = len(parent)
     depth = np.zeros(n, np.int32)
     for i in range(n):

@@ -8,7 +8,7 @@ Loads the same ``*.skeleton.json`` schema as the reference
      translations[B][3], preRotationDegrees[B][3]}
 
 The output is a frozen dataclass of numpy arrays, pre-packing everything the
-TPU pose engine needs:
+pose engine needs:
   * ``bind_local`` / ``inv_bind_model`` — bind pose and inverse bind palette
   * ``pre_rot`` — per-bone left rotation multiplier, with the root rotation
     fix already composed into bone 0, so the runtime computes

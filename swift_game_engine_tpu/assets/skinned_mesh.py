@@ -10,9 +10,9 @@ Schema and semantics follow the reference loader
     scaled by unitScale) override the skeleton's bind-pose-derived ones
   * submeshes become (start, count, material) ranges over one index buffer
 
-TPU-native addition: ``dense_weights`` — the (V, 4) sparse joints/weights are
-expanded into a dense (V, B) matrix at load so skinning runs as one
-(V, B) x (B, 16) MXU matmul instead of a gather loop.
+Addition: ``dense_weights`` — the (V, 4) sparse joints/weights are expanded
+into a dense (V, B) matrix at load so skinning runs as one (V, B) x (B, 16)
+matmul instead of a gather loop.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ class SkinnedMeshAsset:
     indices: np.ndarray        # (I,) int32
     submeshes: tuple[SkinnedSubmesh, ...]
     inv_bind_model: np.ndarray  # (B,4,4) skeleton invBind with JSON overrides
-    dense_weights: np.ndarray  # (V,B) float32 — for MXU skinning
+    dense_weights: np.ndarray  # (V,B) float32 — for matmul skinning
 
     @property
     def vertex_count(self) -> int:

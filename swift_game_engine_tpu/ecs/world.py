@@ -2,7 +2,7 @@
 
 The reference World is a registry of per-type Entity->struct dictionaries with
 1-4 component queries (reference: Game/World.swift:12-133, Game/Entity.swift).
-The TPU redesign: every component is a dense array table sized by the entity
+The array redesign: every component is a dense array table sized by the entity
 capacity E plus a boolean ``has`` mask — queries become mask intersections,
 per-entity loops become masked vectorized ops, and the whole mutable state is
 one pytree (`WorldState`) stepped under jit. Static/config data (meshes,
@@ -10,7 +10,7 @@ tuning, masks) lives in `SceneSpec` on the host and is closed over by the
 jitted step.
 
 Large-world positions keep the reference's chunk+local split
-(Components.swift:54-135) as (int32 chunk, f32 local) — f64 is not TPU-native.
+(Components.swift:54-135) as (int32 chunk, f32 local) — f32 keeps every device op in single precision.
 """
 
 from __future__ import annotations

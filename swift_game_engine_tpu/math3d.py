@@ -1,6 +1,6 @@
 """3D math substrate: matrices, quaternions, Euler rotations.
 
-TPU-native replacement for the reference engine's simd-based math layer
+JAX replacement for the reference engine's simd-based math layer
 (reference: Game/Math.swift:11-82, Game/Skeleton.swift:212-221).
 
 Conventions (matching the reference's simd semantics):

@@ -1,1953 +1,156 @@
-"""Pallas TPU ray-traversal kernel: packet BVH traversal in lockstep.
+"""Closest-hit BVH traversal kernel for NVIDIA GPUs (Pallas, Triton route).
 
-This is the engine's equivalent of the reference's hardware-accelerated
-`intersector.intersect` (reference: Game/RayTracing.metalinc:242) — the one
-piece Metal provides for free and the TPU build owns.
+This is the engine's equivalent of the reference's hardware intersector
+(`intersector.intersect`, Game/RayTracing.metalinc:242).
 
-Design (why this shape wins on TPU):
-  * Rays are processed in square-tile-coherent blocks of BLOCK (default
-    4096 = 32 sublane rows x 128 lanes). All per-ray math (slab tests,
-    Moller-Trumbore) is pure vector ALU. Bigger blocks amortize the
-    per-node loop overhead faster than the packet's subtree union grows
-    (measured 1024/2048/4096 -> 932/762/701 ms frames).
-  * The whole block shares ONE traversal cursor (packet traversal): a scalar
-    node pointer walks the preorder BVH via skip links — no stack, no
-    per-lane pointers, so the kernel needs no vector gathers (TPUs have
-    none).
-  * The BVH is **one (M, 128) row-per-node array in VMEM** (bounds, skip
-    link, leaf flag, SLOT_N inlined triangles in edge form) plus a flat
-    **SMEM copy of the 8-float header**: an interior step is 8 scalar
-    loads + vector slab math and never touches vector memory; only the
-    leaf branch loads the full row (dynamic-sublane load + static lane
-    extracts — the access patterns Mosaic supports at full speed).
-  * Early exit: the cursor prunes subtrees whose entry distance exceeds
-    every ray's current best hit; an any-hit variant (shadow occlusion)
-    additionally exits once every live lane is blocked.
+Design: every ray walks the stackless preorder skip-link tree
+(render.bvh) on its own. A program owns ``RAYS_PER_PROGRAM`` rays, one per
+thread; each ray keeps only its node cursor, its best ``t`` and its best
+triangle id in registers. A step gathers the node's 8-float header
+(bounds, skip link, leaf flag) for every live lane: a box hit on an interior
+node descends to ``node + 1``, a miss or a leaf follows the skip link. Leaf
+triangle tests run when any lane of the program stands on a leaf it hits;
+their loads are masked to those lanes. The tree (``render.bvh.pack_rows``:
+one 512-byte row per node) stays in device memory and is read through the
+caches; a full-fidelity DemoScene tree is a few tens of MB and fits in L2.
 
-vs the pure-JAX stackless traversal (render.bvh.traverse): identical results,
-but a step costs VPU-cycles instead of an XLA op dispatch, and coherent
-packets visit only the union of their rays' subtrees.
-
-Row layout (f32 lanes):
-  [0:3]  bmin            [3:6]  bmax
-  [6]    skip link       [7]    leaf flag
-  [8+9j : 17+9j] triangle j as (a, b-a, c-a), j in 0..SLOT_N-1
-  [8+9*SLOT_N + j] triangle j's original id (-1 if empty)
+The results match ``render.bvh.traverse`` (the plain reference): the same
+slab test, the same Moller-Trumbore test with ``t > 1e-4``, and within a
+leaf the first of equal minima wins.
 """
 
 from __future__ import annotations
 
-import os
-from ..config import knob
-from functools import partial
-from typing import NamedTuple
-
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-# Rays per program. One (8,128) VPU tile per 1024; larger blocks amortize
-# the per-node loop overhead (the kernel is overhead-bound, not ALU-bound)
-# at the cost of a larger per-packet subtree union. Tunable for experiments.
-BLOCK = knob("SGE_RT_BLOCK")
-assert BLOCK % 1024 == 0, "BLOCK must be a multiple of 1024"
-_SUB = 8 * (BLOCK // 1024)   # sublane rows per ray operand
-# Timing-only knob: skip leaf triangle tests (WRONG results — used to
-# attribute kernel time between traversal control and leaf intersection).
-_PROFILE_NOLEAF = os.environ.get("SGE_RT_PROFILE_NOLEAF") == "1"
-# Timing-only knob: kernels output per-packet (interior, leaf) visit counts
-# instead of (t, tri) — used to attribute walk cost between traversal
-# control and leaf intersection across kernel/block/leaf configs.
-_PROFILE_COUNTS = os.environ.get("SGE_RT_COUNTS") == "1"
-# Keep a (M,8) copy of [bmin,bmax,skip,leaf] in SMEM: interior steps then
-# read 8 scalars from scalar memory instead of a dynamic VMEM row load +
-# vector lane extracts; the full 128-lane row is only loaded in the leaf
-# branch. Stored FLAT (M*8,) — SMEM pads 2D rows to 512B each. SMEM is
-# ~1MB total, so this path is auto-selected only while the header fits
-# (<= ~22k nodes, leaving headroom for Mosaic's own scalars); larger trees
-# fall back to the all-VMEM kernel. Measured: 53.6 -> 36.2 ms per primary
-# pass on the demo scene. SGE_RT_SMEM=0 forces the fallback.
-_USE_SMEM = bool(knob("SGE_RT_SMEM"))
-# Near-first ordered traversal (two-child descent + SMEM stack); see
-# _kernel_smem_ordered. SGE_RT_ORDERED=0 falls back to the skip-link walk.
-_USE_ORDERED = bool(knob("SGE_RT_ORDERED"))
-# Ordering-key variant: 1 = packet-min box entry distance (two f32
-# min-reductions per interior step), 0 = scalar header-only key (projected
-# box-center distance along the packet mean direction — no reductions;
-# ordering is heuristic, correctness unchanged since per-lane t_best
-# pruning stays exact).
-_EXACT_KEY = bool(knob("SGE_RT_EXACT_KEY"))
-_SMEM_MAX_NODES = 22_000
-# All-VMEM fallback cap (rows are 512 B/node); beyond this the HBM
-# streaming kernel takes over. SGE_RT_STREAM=1 forces streaming (testing).
-_VMEM_MAX_NODES = 26_000
-_USE_STREAM = bool(knob("SGE_RT_STREAM"))
-BIG = np.float32(3.0e38)
-EPS = 1e-6
-ROW = 128
-# Triangles inlined per leaf row; 12 fills the row exactly (8 + 9*12 + 12 =
-# 128 lanes). Smaller leaves trade per-visit intersection work for a deeper
-# tree (env-tunable for experiments; the tree must be built with matching
-# leaf_size — scene_geometry reads this constant).
-SLOT_N = knob("SGE_RT_LEAF")
-assert 1 <= SLOT_N <= 12
+from ..render.bvh import LEAF_SLOTS, ROW, ROW_IDS, ROW_TRIS
+
+# Rays per program: one ray per thread of 4 warps.
+RAYS_PER_PROGRAM = 128
+NUM_WARPS = 4
+_EPS = 1e-6
 
 
-class KernelBVH(NamedTuple):
-    rows: jnp.ndarray   # (M, 128) f32
-    n_nodes: int
-
-
-def pack_bvh(bvh, translucent=None) -> KernelBVH:
-    """render.bvh.BVHArrays -> row-per-node kernel layout (jit-safe).
-
-    ``translucent``: optional (T,) bool per ORIGINAL triangle id. Translucent
-    slots are encoded as ``id + 0.5`` (exact in f32 below 2^22): the normal
-    kernels' int cast truncates it away, while the shadow any-hit kernel
-    treats only integral ids (opaque) as full blockers."""
-    m = bvh.bmin.shape[0]
-    slots = bvh.slot_tri                      # (M,K) original tri ids
-    k = slots.shape[1]
-    assert k <= SLOT_N, f"leaf width {k} exceeds row capacity {SLOT_N}"
-    if k < SLOT_N:
-        slots = jnp.concatenate(
-            [slots, jnp.full((m, SLOT_N - k), -1, slots.dtype)], axis=1)
-    safe = jnp.maximum(slots, 0)
-    a = bvh.v0[safe]                          # (M,SLOT_N,3)
-    ba = bvh.v1[safe] - a
-    ca = bvh.v2[safe] - a
-    tri_block = jnp.concatenate([a, ba, ca], axis=-1)   # (M,SLOT_N,9)
-
-    slots_f = slots.astype(jnp.float32)
-    if translucent is not None:
-        tr = translucent[safe] & (slots >= 0)
-        slots_f = slots_f + 0.5 * tr.astype(jnp.float32)
-    rows = jnp.concatenate([
-        bvh.bmin,                                        # 0:3
-        bvh.bmax,                                        # 3:6
-        bvh.skip.astype(jnp.float32)[:, None],           # 6
-        bvh.is_leaf.astype(jnp.float32)[:, None],        # 7
-        tri_block.reshape(m, 9 * SLOT_N),                # 8:116
-        slots_f,                                         # 8+9*SLOT_N ..
-    ], axis=-1)
-    pad = ROW - rows.shape[-1]
-    assert pad >= 0
-    rows = jnp.pad(rows, ((0, 0), (0, pad)))
-    # pad row count to a sublane multiple
-    mp = (-m) % 8
-    if mp:
-        rows = jnp.pad(rows, ((0, mp), (0, 0)))
-    return KernelBVH(rows=rows, n_nodes=m)
-
-
-def _kernel_smem(header_ref, rows_ref, ox_ref, oy_ref, oz_ref,
-                 dx_ref, dy_ref, dz_ref, tmax_ref, t_out, tri_out):
-    """SMEM-header traversal: interior steps are 8 scalar loads + vector
-    slab math; the 128-lane row is loaded only when a leaf must test its
-    triangles."""
-    ox = ox_ref[0]
-    oy = oy_ref[0]
-    oz = oz_ref[0]
-    dx = dx_ref[0]
-    dy = dy_ref[0]
-    dz = dz_ref[0]
+def _kernel(rows_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
+            tmax_ref, t_ref, tri_ref):
+    ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]
+    dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
+    t_max = tmax_ref[...]
 
     def safe_inv(v):
         tiny = jnp.abs(v) < 1e-12
-        vs = jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
-        return 1.0 / vs
-
-    inv_x = safe_inv(dx)
-    inv_y = safe_inv(dy)
-    inv_z = safe_inv(dz)
-
-    t0 = tmax_ref[0]
-    tri0 = jnp.full(t0.shape, -1.0, jnp.float32)
-
-    def cond(c):
-        node, _, _ = c
-        return node >= 0
-
-    def body(c):
-        node, t_best, tri_best = c
-        tx0 = (header_ref[node * 8 + 0] - ox) * inv_x
-        tx1 = (header_ref[node * 8 + 3] - ox) * inv_x
-        ty0 = (header_ref[node * 8 + 1] - oy) * inv_y
-        ty1 = (header_ref[node * 8 + 4] - oy) * inv_y
-        tz0 = (header_ref[node * 8 + 2] - oz) * inv_z
-        tz1 = (header_ref[node * 8 + 5] - oz) * inv_z
-        tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx0, tx1),
-                                       jnp.minimum(ty0, ty1)),
-                           jnp.minimum(tz0, tz1))
-        tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx0, tx1),
-                                       jnp.maximum(ty0, ty1)),
-                           jnp.maximum(tz0, tz1))
-        box_hit = (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < t_best)
-        any_hit = jnp.any(box_hit)
-
-        is_leaf = header_ref[node * 8 + 7] > 0.5
-
-        def do_leaf(args):
-            tb, trib = args
-            row = rows_ref[pl.ds(node, 1), :]   # only leaves touch VMEM rows
-
-            def s(k):
-                return row[0, k]
-
-            ids_base = 8 + 9 * SLOT_N
-            for j in range(SLOT_N):
-                base = 8 + 9 * j
-                tri_id = row[0, ids_base + j]
-                valid = tri_id >= 0
-                ax, ay, az = s(base), s(base + 1), s(base + 2)
-                e1x, e1y, e1z = s(base + 3), s(base + 4), s(base + 5)
-                e2x, e2y, e2z = s(base + 6), s(base + 7), s(base + 8)
-                px = dy * e2z - dz * e2y
-                py = dz * e2x - dx * e2z
-                pz = dx * e2y - dy * e2x
-                det = e1x * px + e1y * py + e1z * pz
-                ok = jnp.abs(det) >= EPS
-                inv_det = 1.0 / jnp.where(ok, det, 1.0)
-                tvx, tvy, tvz = ox - ax, oy - ay, oz - az
-                u = (tvx * px + tvy * py + tvz * pz) * inv_det
-                qx = tvy * e1z - tvz * e1y
-                qy = tvz * e1x - tvx * e1z
-                qz = tvx * e1y - tvy * e1x
-                v = (dx * qx + dy * qy + dz * qz) * inv_det
-                t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-                hit = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & \
-                    (t > 1e-4) & (t < tb) & valid & box_hit
-                tb = jnp.where(hit, t, tb)
-                trib = jnp.where(hit, tri_id, trib)
-            return tb, trib
-
-        t_best, tri_best = jax.lax.cond(
-            is_leaf & any_hit, do_leaf, lambda args: args, (t_best, tri_best))
-
-        descend = any_hit & jnp.logical_not(is_leaf)
-        node = jnp.where(descend, node + 1,
-                         header_ref[node * 8 + 6].astype(jnp.int32))
-        return node, t_best, tri_best
-
-    node0 = jnp.int32(0)
-    _, t_best, tri_best = jax.lax.while_loop(cond, body, (node0, t0, tri0))
-    t_out[0] = t_best
-    tri_out[0] = tri_best.astype(jnp.int32)
-
-
-# Ordered traversal: classic two-child descent with a per-packet SMEM stack.
-# The packet visits the nearer child first (by the packet-min box entry
-# distance), so t_best tightens early and far subtrees fail their box test
-# — the preorder skip-link walk always descended front-child-first
-# regardless of ray direction, testing far leaves before near ones.
-# In preorder, interior node n has left child n+1 and right child
-# skip[n+1], so the ordered kernel reuses the exact same header.
-# Pushes clamp at _STACK_MAX-1 (SMEM cannot be allowed to corrupt): a
-# degenerate tree deeper than the stack drops far subtrees instead of
-# writing out of bounds. SAH/Morton builds stay far below this bound; the
-# packers assert the actual depth at build time (see pack_bvh).
-_STACK_MAX = 128
-
-
-def _kernel_smem_ordered(header_ref, rows_ref, ox_ref, oy_ref, oz_ref,
-                         dx_ref, dy_ref, dz_ref, tmax_ref, t_out, tri_out,
-                         stack_ref):
-    ox = ox_ref[0]
-    oy = oy_ref[0]
-    oz = oz_ref[0]
-    dx = dx_ref[0]
-    dy = dy_ref[0]
-    dz = dz_ref[0]
-
-    def safe_inv(v):
-        tiny = jnp.abs(v) < 1e-12
-        vs = jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
-        return 1.0 / vs
-
-    inv_x = safe_inv(dx)
-    inv_y = safe_inv(dy)
-    inv_z = safe_inv(dz)
-
-    t0 = tmax_ref[0]
-    tri0 = jnp.full(t0.shape, -1.0, jnp.float32)
-
-    if not _EXACT_KEY:
-        mdx = jnp.mean(dx)
-        mdy = jnp.mean(dy)
-        mdz = jnp.mean(dz)
-        mox = jnp.mean(ox)
-        moy = jnp.mean(oy)
-        moz = jnp.mean(oz)
-
-    def slab(node, t_best):
-        tx0 = (header_ref[node * 8 + 0] - ox) * inv_x
-        tx1 = (header_ref[node * 8 + 3] - ox) * inv_x
-        ty0 = (header_ref[node * 8 + 1] - oy) * inv_y
-        ty1 = (header_ref[node * 8 + 4] - oy) * inv_y
-        tz0 = (header_ref[node * 8 + 2] - oz) * inv_z
-        tz1 = (header_ref[node * 8 + 5] - oz) * inv_z
-        tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx0, tx1),
-                                       jnp.minimum(ty0, ty1)),
-                           jnp.minimum(tz0, tz1))
-        tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx0, tx1),
-                                       jnp.maximum(ty0, ty1)),
-                           jnp.maximum(tz0, tz1))
-        box_hit = (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < t_best)
-        return box_hit, tmin
-
-    def cond(c):
-        node = c[0]
-        return node >= 0
-
-    def body(c):
-        node, sp, t_best, tri_best, n_int, n_leaf = c
-        is_leaf = header_ref[node * 8 + 7] > 0.5
-        n_int = n_int + (~is_leaf).astype(jnp.int32)
-        n_leaf = n_leaf + is_leaf.astype(jnp.int32)
-
-        def do_leaf(args):
-            tb, trib = args
-            box_hit, _ = slab(node, tb)
-            row = rows_ref[pl.ds(node, 1), :]
-
-            def s(k):
-                return row[0, k]
-
-            ids_base = 8 + 9 * SLOT_N
-            for j in range(SLOT_N):
-                base = 8 + 9 * j
-                tri_id = row[0, ids_base + j]
-                valid = tri_id >= 0
-                ax, ay, az = s(base), s(base + 1), s(base + 2)
-                e1x, e1y, e1z = s(base + 3), s(base + 4), s(base + 5)
-                e2x, e2y, e2z = s(base + 6), s(base + 7), s(base + 8)
-                px = dy * e2z - dz * e2y
-                py = dz * e2x - dx * e2z
-                pz = dx * e2y - dy * e2x
-                det = e1x * px + e1y * py + e1z * pz
-                ok = jnp.abs(det) >= EPS
-                inv_det = 1.0 / jnp.where(ok, det, 1.0)
-                tvx, tvy, tvz = ox - ax, oy - ay, oz - az
-                u = (tvx * px + tvy * py + tvz * pz) * inv_det
-                qx = tvy * e1z - tvz * e1y
-                qy = tvz * e1x - tvx * e1z
-                qz = tvx * e1y - tvy * e1x
-                v = (dx * qx + dy * qy + dz * qz) * inv_det
-                t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-                hit = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & \
-                    (t > 1e-4) & (t < tb) & valid & box_hit
-                tb = jnp.where(hit, t, tb)
-                trib = jnp.where(hit, tri_id, trib)
-            return tb, trib
-
-        t_best, tri_best = jax.lax.cond(
-            is_leaf, do_leaf, lambda args: args, (t_best, tri_best))
-
-        # Interior: test both children, descend near-first, push the far
-        # child. key == BIG also encodes "no lane hit".
-        left = node + 1
-        right = jnp.int32(0)
-
-        big = jnp.float32(3.0e38)
-
-        if _EXACT_KEY:
-            def child_keys(_):
-                r = header_ref[left * 8 + 6].astype(jnp.int32)
-                bh_l, tmin_l = slab(left, t_best)
-                bh_r, tmin_r = slab(r, t_best)
-                key_l = jnp.min(jnp.where(bh_l, tmin_l, big))
-                key_r = jnp.min(jnp.where(bh_r, tmin_r, big))
-                return r, key_l, key_r
-        else:
-            # Heuristic key from SMEM header only: projected box-center
-            # distance along the packet mean direction (means precomputed
-            # once per packet before the loop). Hit decision stays per-lane
-            # exact (any-reduce of the slab mask).
-            def center_key(c):
-                cx = (header_ref[c * 8 + 0] + header_ref[c * 8 + 3]) * 0.5
-                cy = (header_ref[c * 8 + 1] + header_ref[c * 8 + 4]) * 0.5
-                cz = (header_ref[c * 8 + 2] + header_ref[c * 8 + 5]) * 0.5
-                return (cx - mox) * mdx + (cy - moy) * mdy + (cz - moz) * mdz
-
-            def child_keys(_):
-                r = header_ref[left * 8 + 6].astype(jnp.int32)
-                bh_l, _ = slab(left, t_best)
-                bh_r, _ = slab(r, t_best)
-                key_l = jnp.where(jnp.any(bh_l), center_key(left), big)
-                key_r = jnp.where(jnp.any(bh_r), center_key(r), big)
-                return r, key_l, key_r
-
-        right, key_l, key_r = jax.lax.cond(
-            is_leaf, lambda _: (jnp.int32(0), big, big), child_keys, 0)
-
-        hit_l = key_l < big
-        hit_r = key_r < big
-        both = hit_l & hit_r
-        near = jnp.where(key_l <= key_r, left, right)
-        far = left + right - near
-
-        @pl.when(both)
-        def _():
-            stack_ref[jnp.minimum(sp, _STACK_MAX - 1)] = far
-
-        sp = jnp.minimum(sp + both.astype(jnp.int32), _STACK_MAX - 1)
-        descend = (~is_leaf) & (hit_l | hit_r)
-        # Pop when this was a leaf or neither child was hit.
-        do_pop = jnp.logical_not(descend)
-        sp_pop = sp - do_pop.astype(jnp.int32)
-        popped = stack_ref[jnp.maximum(sp_pop, 0)]
-        node = jnp.where(descend,
-                         jnp.where(both, near, jnp.where(hit_l, left, right)),
-                         jnp.where(sp_pop >= 0, popped, -1))
-        return node, jnp.maximum(sp_pop, 0), t_best, tri_best, n_int, n_leaf
-
-    node0 = jnp.int32(0)
-    sp0 = jnp.int32(0)
-    _, _, t_best, tri_best, n_int, n_leaf = jax.lax.while_loop(
-        cond, body, (node0, sp0, t0, tri0, jnp.int32(0), jnp.int32(0)))
-    if _PROFILE_COUNTS:
-        t_out[0] = jnp.full(t0.shape, n_int.astype(jnp.float32))
-        tri_out[0] = jnp.full(t0.shape, n_leaf)
-        return
-    t_out[0] = t_best
-    tri_out[0] = tri_best.astype(jnp.int32)
-
-
-# Interval walk: the round-3 traversal. The ordered kernel's interior step
-# still serializes on vector work — two 4096-lane slab tests plus two
-# cross-lane min-reductions whose scalar results gate the next node (a
-# vector->scalar sync per step is exactly the latency a lockstep walk can't
-# hide; measured: block-size scaling was overhead-flat, not ALU-bound).
-# This kernel removes ALL vector work from interior steps:
-#
-#   * Per packet, precompute scalar interval bounds over the live lanes:
-#     origin min/max and 1/direction min/max per axis (6+6 reductions, once).
-#   * An interior child test is then conservative interval-arithmetic slab
-#     math in SCALAR registers (~85 flops, 8 SMEM loads, no reductions, no
-#     vector<->scalar transfers). False positives possible (loose packet),
-#     false negatives impossible — leaves still run the exact per-lane test.
-#   * Occlusion pruning via one scalar t_pk = max over lanes of t_best,
-#     refreshed ONCE per leaf visit (the only vector->scalar sync left).
-#   * The far-child stack stores (node, entry-key); pops skip entries whose
-#     key >= t_pk, dropping whole subtrees that became occluded after push.
-#
-# Leaves skip the vector slab test entirely: the Moller-Trumbore gate
-# (t > eps, t < t_best, barycentric) is exact on its own.
-#
-# MEASURED (960x540 demo primary pass, block 4096, scan-fused): 88.7 ms vs
-# the ordered kernel's 56.5 ms — the conservative packet interval visits
-# more leaves than its cheaper interior steps save (leaf intersection
-# dominates: 388 leaf vs 589 interior visits/packet, each leaf 12 tris x
-# ~60 vec ops). Kept OFF by default as an experimental path; it may win on
-# narrower packets or leaf-poor trees.
-_USE_INTERVAL = bool(knob("SGE_RT_INTERVAL"))
-
-
-def _leaf_tests(row_fn, ox, oy, oz, dx, dy, dz, tb, trib, box_hit=None):
-    """SLOT_N unrolled Moller-Trumbore tests against one leaf row.
-
-    ``row_fn(k)`` yields lane k of the (1,128) leaf row as a scalar.
-    ``box_hit`` optionally gates hits (per-lane vector mask)."""
-    s = row_fn
-    ids_base = 8 + 9 * SLOT_N
-    for j in range(SLOT_N):
-        base = 8 + 9 * j
-        tri_id = s(ids_base + j)
-        valid = tri_id >= 0
-        ax, ay, az = s(base), s(base + 1), s(base + 2)
-        e1x, e1y, e1z = s(base + 3), s(base + 4), s(base + 5)
-        e2x, e2y, e2z = s(base + 6), s(base + 7), s(base + 8)
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        ok = jnp.abs(det) >= EPS
-        inv_det = 1.0 / jnp.where(ok, det, 1.0)
-        tvx, tvy, tvz = ox - ax, oy - ay, oz - az
-        u = (tvx * px + tvy * py + tvz * pz) * inv_det
-        qx = tvy * e1z - tvz * e1y
-        qy = tvz * e1x - tvx * e1z
-        qz = tvx * e1y - tvy * e1x
-        v = (dx * qx + dy * qy + dz * qz) * inv_det
-        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-        hit = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & \
-            (t > 1e-4) & (t < tb) & valid
-        if box_hit is not None:
-            hit = hit & box_hit
-        tb = jnp.where(hit, t, tb)
-        trib = jnp.where(hit, tri_id, trib)
-    return tb, trib
-
-
-def _kernel_smem_interval(header_ref, rows_ref, ox_ref, oy_ref, oz_ref,
-                          dx_ref, dy_ref, dz_ref, tmax_ref, t_out, tri_out,
-                          stack_node_ref, stack_key_ref):
-    ox = ox_ref[0]
-    oy = oy_ref[0]
-    oz = oz_ref[0]
-    dx = dx_ref[0]
-    dy = dy_ref[0]
-    dz = dz_ref[0]
-    big = jnp.float32(3.0e38)
-
-    t0 = tmax_ref[0]
-    dead = t0 <= 0.0
-    tri0 = jnp.full(t0.shape, -1.0, jnp.float32)
-
-    def safe_inv(v):
-        tiny = jnp.abs(v) < 1e-12
-        vs = jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
-        return 1.0 / vs
-
-    inv_x = safe_inv(dx)
-    inv_y = safe_inv(dy)
-    inv_z = safe_inv(dz)
-
-    # Packet interval bounds over LIVE lanes only (a dead/padded lane is
-    # parked at origin 1e9 and must not widen the frustum to uselessness).
-    def lo(v):
-        return jnp.min(jnp.where(dead, big, v))
-
-    def hi(v):
-        return jnp.max(jnp.where(dead, -big, v))
-
-    o_lo = (lo(ox), lo(oy), lo(oz))
-    o_hi = (hi(ox), hi(oy), hi(oz))
-    i_lo = (lo(inv_x), lo(inv_y), lo(inv_z))
-    i_hi = (hi(inv_x), hi(inv_y), hi(inv_z))
-    t_pk0 = jnp.max(t0)
-
-    def ivt(c, t_pk):
-        """Conservative scalar slab test of node ``c`` against the packet
-        interval. Returns (hit, key=lower bound of any lane's entry t)."""
-        lb = jnp.float32(-3.0e38)
-        ub = big
-        for axis in range(3):
-            bmn = header_ref[c * 8 + axis]
-            bmx = header_ref[c * 8 + 3 + axis]
-            il = i_lo[axis]
-            ih = i_hi[axis]
-            a_lo = bmn - o_hi[axis]
-            a_hi = bmn - o_lo[axis]
-            b_lo = bmx - o_hi[axis]
-            b_hi = bmx - o_lo[axis]
-            t00 = a_lo * il
-            t01 = a_lo * ih
-            t02 = a_hi * il
-            t03 = a_hi * ih
-            tx0_lo = jnp.minimum(jnp.minimum(t00, t01), jnp.minimum(t02, t03))
-            tx0_hi = jnp.maximum(jnp.maximum(t00, t01), jnp.maximum(t02, t03))
-            t10 = b_lo * il
-            t11 = b_lo * ih
-            t12 = b_hi * il
-            t13 = b_hi * ih
-            tx1_lo = jnp.minimum(jnp.minimum(t10, t11), jnp.minimum(t12, t13))
-            tx1_hi = jnp.maximum(jnp.maximum(t10, t11), jnp.maximum(t12, t13))
-            # per-lane tmin_axis = min(tx0, tx1): lower bound over lanes;
-            # per-lane tmax_axis = max(tx0, tx1): upper bound over lanes.
-            lb = jnp.maximum(lb, jnp.minimum(tx0_lo, tx1_lo))
-            ub = jnp.minimum(ub, jnp.maximum(tx0_hi, tx1_hi))
-        hit = (ub >= jnp.maximum(lb, 0.0)) & (lb < t_pk)
-        return hit, lb
-
-    def cond(c):
-        return c[0] >= 0
-
-    def body(c):
-        node, node_key, sp, t_pk, t_best, tri_best, n_int, n_leaf = c
-        # Staleness is checked lazily at visit time: a node popped with
-        # entry key >= the (since-tightened) packet occlusion bound skips
-        # both the leaf tests and the child tests, costing one light
-        # iteration — no nested pop loop (a nested while inside the walk
-        # stalled the Mosaic compile).
-        fresh = node_key < t_pk
-        is_leaf = header_ref[node * 8 + 7] > 0.5
-        n_int = n_int + ((~is_leaf) & fresh).astype(jnp.int32)
-        n_leaf = n_leaf + (is_leaf & fresh).astype(jnp.int32)
-
-        def do_leaf(args):
-            tb, trib = args
-            row = rows_ref[pl.ds(node, 1), :]
-            if _PROFILE_NOLEAF:
-                return tb, trib
-            return _leaf_tests(lambda k: row[0, k], ox, oy, oz, dx, dy, dz,
-                               tb, trib)
-
-        leaf_work = is_leaf & fresh
-        t_best, tri_best = jax.lax.cond(
-            leaf_work, do_leaf, lambda args: args, (t_best, tri_best))
-        # The only vector->scalar sync in the loop: refresh the packet
-        # occlusion bound after a leaf may have tightened some lane.
-        t_pk = jnp.where(leaf_work, jnp.max(t_best), t_pk)
-
-        left = node + 1
-
-        def child_tests(_):
-            r = header_ref[left * 8 + 6].astype(jnp.int32)
-            hit_l, key_l = ivt(left, t_pk)
-            hit_r, key_r = ivt(r, t_pk)
-            return r, jnp.where(hit_l, key_l, big), jnp.where(hit_r, key_r, big)
-
-        right, key_l, key_r = jax.lax.cond(
-            is_leaf | ~fresh, lambda _: (jnp.int32(0), big, big),
-            child_tests, 0)
-
-        hit_l = key_l < big
-        hit_r = key_r < big
-        both = hit_l & hit_r
-        near = jnp.where(key_l <= key_r, left, right)
-        near_key = jnp.minimum(key_l, key_r)
-        far = left + right - near
-        far_key = jnp.maximum(key_l, key_r)
-
-        @pl.when(both)
-        def _():
-            slot = jnp.minimum(sp, _STACK_MAX - 1)
-            stack_node_ref[slot] = far
-            stack_key_ref[slot] = far_key
-
-        sp = jnp.minimum(sp + both.astype(jnp.int32), _STACK_MAX - 1)
-        descend = (~is_leaf) & fresh & (hit_l | hit_r)
-
-        popped_ok = sp > 0
-        pop_slot = jnp.maximum(sp - 1, 0)
-        node = jnp.where(
-            descend, near,
-            jnp.where(popped_ok, stack_node_ref[pop_slot], -1))
-        node_key = jnp.where(
-            descend, near_key,
-            jnp.where(popped_ok, stack_key_ref[pop_slot], big))
-        sp = jnp.where(descend, sp, pop_slot)
-        return node, node_key, sp, t_pk, t_best, tri_best, n_int, n_leaf
-
-    node0 = jnp.where(t_pk0 > 0.0, jnp.int32(0), jnp.int32(-1))
-    init = (node0, jnp.float32(-3.0e38), jnp.int32(0), t_pk0, t0, tri0,
-            jnp.int32(0), jnp.int32(0))
-    _, _, _, _, t_best, tri_best, n_int, n_leaf = jax.lax.while_loop(
-        cond, body, init)
-    if _PROFILE_COUNTS:
-        t_out[0] = jnp.full(t0.shape, n_int.astype(jnp.float32))
-        tri_out[0] = jnp.full(t0.shape, n_leaf)
-        return
-    t_out[0] = t_best
-    tri_out[0] = tri_best.astype(jnp.int32)
-
-
-# Dual-packet interleaving: one program instance walks TWO packets with
-# independent cursors in one loop, aiming to hide the serial
-# scalar-load -> slab -> reduction -> next-node chain of one walk behind
-# the other's vector work. MEASURED: 90.1 vs 85.7 ms on the demo scene —
-# a small loss (Mosaic evidently doesn't co-schedule the streams enough to
-# beat the lockstep-exit waste), so OFF by default; kept for re-evaluation
-# on future Mosaic versions.
-_USE_DUAL = bool(knob("SGE_RT_DUAL"))
-
-
-def _kernel_smem_ordered2(header_ref, rows_ref, ox_ref, oy_ref, oz_ref,
-                          dx_ref, dy_ref, dz_ref, tmax_ref, t_out, tri_out,
-                          stack_ref):
-    """Two-packet interleaved variant of _kernel_smem_ordered. Ray operands
-    are (2, _SUB, 128); stack_ref is (2, _STACK_MAX)."""
-    big = jnp.float32(3.0e38)
-
-    def safe_inv(v):
-        tiny = jnp.abs(v) < 1e-12
-        vs = jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
-        return 1.0 / vs
-
-    P = []
-    for k in range(2):
-        o = (ox_ref[k], oy_ref[k], oz_ref[k])
-        d = (dx_ref[k], dy_ref[k], dz_ref[k])
-        inv = (safe_inv(d[0]), safe_inv(d[1]), safe_inv(d[2]))
-        P.append((o, d, inv))
-
-    def slab(k, node, t_best):
-        (o, _, inv) = P[k]
-        tx0 = (header_ref[node * 8 + 0] - o[0]) * inv[0]
-        tx1 = (header_ref[node * 8 + 3] - o[0]) * inv[0]
-        ty0 = (header_ref[node * 8 + 1] - o[1]) * inv[1]
-        ty1 = (header_ref[node * 8 + 4] - o[1]) * inv[1]
-        tz0 = (header_ref[node * 8 + 2] - o[2]) * inv[2]
-        tz1 = (header_ref[node * 8 + 5] - o[2]) * inv[2]
-        tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx0, tx1),
-                                       jnp.minimum(ty0, ty1)),
-                           jnp.minimum(tz0, tz1))
-        tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx0, tx1),
-                                       jnp.maximum(ty0, ty1)),
-                           jnp.maximum(tz0, tz1))
-        box_hit = (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < t_best)
-        return box_hit, tmin
-
-    def leaf_tests(k, node, tb, trib):
-        (o, d, _) = P[k]
-        box_hit, _ = slab(k, node, tb)
-        row = rows_ref[pl.ds(node, 1), :]
-
-        def s(j):
-            return row[0, j]
-
-        ids_base = 8 + 9 * SLOT_N
-        for j in range(SLOT_N):
-            base = 8 + 9 * j
-            tri_id = row[0, ids_base + j]
-            valid = tri_id >= 0
-            ax, ay, az = s(base), s(base + 1), s(base + 2)
-            e1x, e1y, e1z = s(base + 3), s(base + 4), s(base + 5)
-            e2x, e2y, e2z = s(base + 6), s(base + 7), s(base + 8)
-            px = d[1] * e2z - d[2] * e2y
-            py = d[2] * e2x - d[0] * e2z
-            pz = d[0] * e2y - d[1] * e2x
+        return 1.0 / jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
+
+    inv_x, inv_y, inv_z = safe_inv(dx), safe_inv(dy), safe_inv(dz)
+
+    def leaf_tests(base, on_leaf, t_best, tri_best):
+        for j in range(LEAF_SLOTS):
+            tri_id = plgpu.load(rows_ref.at[base + (ROW_IDS + j)],
+                                mask=on_leaf, other=-1.0)
+            valid = on_leaf & (tri_id >= 0)
+            tb = base + (ROW_TRIS + 9 * j)
+
+            def g(k):
+                return plgpu.load(rows_ref.at[tb + k], mask=valid, other=0.0)
+
+            ax, ay, az = g(0), g(1), g(2)
+            e1x, e1y, e1z = g(3), g(4), g(5)
+            e2x, e2y, e2z = g(6), g(7), g(8)
+            px = dy * e2z - dz * e2y
+            py = dz * e2x - dx * e2z
+            pz = dx * e2y - dy * e2x
             det = e1x * px + e1y * py + e1z * pz
-            ok = jnp.abs(det) >= EPS
+            ok = jnp.abs(det) >= _EPS
             inv_det = 1.0 / jnp.where(ok, det, 1.0)
-            tvx, tvy, tvz = o[0] - ax, o[1] - ay, o[2] - az
+            tvx, tvy, tvz = ox - ax, oy - ay, oz - az
             u = (tvx * px + tvy * py + tvz * pz) * inv_det
             qx = tvy * e1z - tvz * e1y
             qy = tvz * e1x - tvx * e1z
             qz = tvx * e1y - tvy * e1x
-            v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv_det
+            v = (dx * qx + dy * qy + dz * qz) * inv_det
             t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-            hit = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & \
-                (t > 1e-4) & (t < tb) & valid & box_hit
-            tb = jnp.where(hit, t, tb)
-            trib = jnp.where(hit, tri_id, trib)
-        return tb, trib
-
-    def step_one(k, node, sp, t_best, tri_best):
-        """One traversal step for packet k; node < 0 lanes are inert."""
-        alive = node >= 0
-        node_c = jnp.maximum(node, 0)
-        is_leaf = header_ref[node_c * 8 + 7] > 0.5
-
-        t_best, tri_best = jax.lax.cond(
-            alive & is_leaf, lambda a: leaf_tests(k, node_c, *a),
-            lambda a: a, (t_best, tri_best))
-
-        left = node_c + 1
-
-        def child_keys(_):
-            r = header_ref[left * 8 + 6].astype(jnp.int32)
-            bh_l, tmin_l = slab(k, left, t_best)
-            bh_r, tmin_r = slab(k, r, t_best)
-            key_l = jnp.min(jnp.where(bh_l, tmin_l, big))
-            key_r = jnp.min(jnp.where(bh_r, tmin_r, big))
-            return r, key_l, key_r
-
-        right, key_l, key_r = jax.lax.cond(
-            (~alive) | is_leaf, lambda _: (jnp.int32(0), big, big),
-            child_keys, 0)
-
-        hit_l = key_l < big
-        hit_r = key_r < big
-        both = hit_l & hit_r
-        near = jnp.where(key_l <= key_r, left, right)
-        far = left + right - near
-
-        @pl.when(alive & both)
-        def _():
-            stack_ref[k, jnp.minimum(sp, _STACK_MAX - 1)] = far
-
-        sp = jnp.minimum(sp + (alive & both).astype(jnp.int32), _STACK_MAX - 1)
-        descend = alive & (~is_leaf) & (hit_l | hit_r)
-        do_pop = alive & jnp.logical_not(descend)
-        sp_pop = sp - do_pop.astype(jnp.int32)
-        popped = stack_ref[k, jnp.maximum(sp_pop, 0)]
-        node = jnp.where(descend,
-                         jnp.where(both, near, jnp.where(hit_l, left, right)),
-                         jnp.where(do_pop,
-                                   jnp.where(sp_pop >= 0, popped, -1), node))
-        return node, jnp.maximum(sp_pop, 0), t_best, tri_best
+            hit = valid & ok & (u >= 0) & (u <= 1) & (v >= 0) & \
+                (u + v <= 1) & (t > 1e-4) & (t < t_best)
+            t_best = jnp.where(hit, t, t_best)
+            tri_best = jnp.where(hit, tri_id, tri_best)
+        return t_best, tri_best
 
     def cond(c):
-        return (c[0] >= 0) | (c[4] >= 0)
-
-    def body(c):
-        n0, s0, t0, r0, n1, s1, t1, r1 = c
-        n0, s0, t0, r0 = step_one(0, n0, s0, t0, r0)
-        n1, s1, t1, r1 = step_one(1, n1, s1, t1, r1)
-        return n0, s0, t0, r0, n1, s1, t1, r1
-
-    init = (jnp.int32(0), jnp.int32(0), tmax_ref[0],
-            jnp.full(tmax_ref[0].shape, -1.0, jnp.float32),
-            jnp.int32(0), jnp.int32(0), tmax_ref[1],
-            jnp.full(tmax_ref[1].shape, -1.0, jnp.float32))
-    _, _, tb0, tr0, _, _, tb1, tr1 = jax.lax.while_loop(cond, body, init)
-    t_out[0] = tb0
-    t_out[1] = tb1
-    tri_out[0] = tr0.astype(jnp.int32)
-    tri_out[1] = tr1.astype(jnp.int32)
-
-
-# HBM-streaming traversal for trees that exceed VMEM. Key property: the
-# preorder skip-link walk is STRICTLY MONOTONIC in node index (next node is
-# either node+1 or skip[node], both greater), so the kernel streams the row
-# array through a VMEM window chunk by chunk — rows stay in HBM, a chunk is
-# DMA'd in on first touch, and skipped subtrees skip whole chunks' DMAs.
-# The DMA (~2 MB at full HBM bandwidth, issued once per visited chunk) is
-# negligible against the vector work spent inside a visited chunk.
-_STREAM_CHUNK = knob("SGE_RT_STREAM_CHUNK")  # rows
-
-
-def _kernel_stream(rows_hbm, ox_ref, oy_ref, oz_ref,
-                   dx_ref, dy_ref, dz_ref, tmax_ref, t_out, tri_out,
-                   buf_ref, sem):
-    ox = ox_ref[0]
-    oy = oy_ref[0]
-    oz = oz_ref[0]
-    dx = dx_ref[0]
-    dy = dy_ref[0]
-    dz = dz_ref[0]
-
-    def safe_inv(v):
-        tiny = jnp.abs(v) < 1e-12
-        vs = jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
-        return 1.0 / vs
-
-    inv_x = safe_inv(dx)
-    inv_y = safe_inv(dy)
-    inv_z = safe_inv(dz)
-
-    t0 = tmax_ref[0]
-    tri0 = jnp.full(t0.shape, -1.0, jnp.float32)
-    C = _STREAM_CHUNK
-
-    def load_chunk(cid):
-        copy = pltpu.make_async_copy(
-            rows_hbm.at[pl.ds(cid * C, C), :], buf_ref, sem)
-        copy.start()
-        copy.wait()
-
-    load_chunk(jnp.int32(0))
-
-    def cond(c):
-        return c[0] >= 0
-
-    def body(c):
-        node, cur_chunk, t_best, tri_best = c
-        chunk_id = node // C
-
-        @pl.when(chunk_id != cur_chunk)
-        def _():
-            load_chunk(chunk_id)
-
-        cur_chunk = chunk_id
-        local = node - chunk_id * C
-        row = buf_ref[pl.ds(local, 1), :]
-
-        def s(k):
-            return row[0, k]
-
-        tx0 = (s(0) - ox) * inv_x
-        tx1 = (s(3) - ox) * inv_x
-        ty0 = (s(1) - oy) * inv_y
-        ty1 = (s(4) - oy) * inv_y
-        tz0 = (s(2) - oz) * inv_z
-        tz1 = (s(5) - oz) * inv_z
-        tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx0, tx1),
-                                       jnp.minimum(ty0, ty1)),
-                           jnp.minimum(tz0, tz1))
-        tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx0, tx1),
-                                       jnp.maximum(ty0, ty1)),
-                           jnp.maximum(tz0, tz1))
-        box_hit = (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < t_best)
-        any_hit = jnp.any(box_hit)
-
-        is_leaf = s(7) > 0.5
-
-        def do_leaf(args):
-            tb, trib = args
-            ids_base = 8 + 9 * SLOT_N
-            for j in range(SLOT_N):
-                base = 8 + 9 * j
-                tri_id = row[0, ids_base + j]
-                valid = tri_id >= 0
-                ax, ay, az = s(base), s(base + 1), s(base + 2)
-                e1x, e1y, e1z = s(base + 3), s(base + 4), s(base + 5)
-                e2x, e2y, e2z = s(base + 6), s(base + 7), s(base + 8)
-                px = dy * e2z - dz * e2y
-                py = dz * e2x - dx * e2z
-                pz = dx * e2y - dy * e2x
-                det = e1x * px + e1y * py + e1z * pz
-                ok = jnp.abs(det) >= EPS
-                inv_det = 1.0 / jnp.where(ok, det, 1.0)
-                tvx, tvy, tvz = ox - ax, oy - ay, oz - az
-                u = (tvx * px + tvy * py + tvz * pz) * inv_det
-                qx = tvy * e1z - tvz * e1y
-                qy = tvz * e1x - tvx * e1z
-                qz = tvx * e1y - tvy * e1x
-                v = (dx * qx + dy * qy + dz * qz) * inv_det
-                t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-                hit = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & \
-                    (t > 1e-4) & (t < tb) & valid & box_hit
-                tb = jnp.where(hit, t, tb)
-                trib = jnp.where(hit, tri_id, trib)
-            return tb, trib
-
-        t_best, tri_best = jax.lax.cond(
-            is_leaf & any_hit, do_leaf, lambda args: args, (t_best, tri_best))
-
-        descend = any_hit & jnp.logical_not(is_leaf)
-        node = jnp.where(descend, node + 1, s(6).astype(jnp.int32))
-        return node, cur_chunk, t_best, tri_best
-
-    _, _, t_best, tri_best = jax.lax.while_loop(
-        cond, body, (jnp.int32(0), jnp.int32(0), t0, tri0))
-    t_out[0] = t_best
-    tri_out[0] = tri_best.astype(jnp.int32)
-
-
-def _kernel_shadow_smem(header_ref, rows_ref, ox_ref, oy_ref, oz_ref,
-                        dx_ref, dy_ref, dz_ref, tmax_ref, blocked_out):
-    """Any-hit occlusion over OPAQUE triangles only (integral slot ids).
-
-    A lane is 'blocked' once any opaque triangle within its t limit is hit;
-    the packet exits as soon as every live lane is blocked — shadow packets
-    usually terminate after a handful of leaves instead of a full
-    closest-hit walk. Translucent triangles (id + 0.5) never block here;
-    the caller resolves remaining lanes with the exact alpha-filter loop."""
-    ox = ox_ref[0]
-    oy = oy_ref[0]
-    oz = oz_ref[0]
-    dx = dx_ref[0]
-    dy = dy_ref[0]
-    dz = dz_ref[0]
-
-    def safe_inv(v):
-        tiny = jnp.abs(v) < 1e-12
-        vs = jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
-        return 1.0 / vs
-
-    inv_x = safe_inv(dx)
-    inv_y = safe_inv(dy)
-    inv_z = safe_inv(dz)
-
-    t_lim = tmax_ref[0]
-    # blocked is an f32 0/1 mask: Mosaic cannot legalize scf.if with i1
-    # vector results, so the cond branch must carry float vectors.
-    blocked0 = jnp.where(t_lim <= 0.0, 1.0, 0.0)
-
-    def cond(c):
-        node, blocked = c
-        return (node >= 0) & (jnp.min(blocked) < 0.5)
-
-    def body(c):
-        node, blocked = c
-        tx0 = (header_ref[node * 8 + 0] - ox) * inv_x
-        tx1 = (header_ref[node * 8 + 3] - ox) * inv_x
-        ty0 = (header_ref[node * 8 + 1] - oy) * inv_y
-        ty1 = (header_ref[node * 8 + 4] - oy) * inv_y
-        tz0 = (header_ref[node * 8 + 2] - oz) * inv_z
-        tz1 = (header_ref[node * 8 + 5] - oz) * inv_z
-        tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx0, tx1),
-                                       jnp.minimum(ty0, ty1)),
-                           jnp.minimum(tz0, tz1))
-        tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx0, tx1),
-                                       jnp.maximum(ty0, ty1)),
-                           jnp.maximum(tz0, tz1))
-        box_hit = (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < t_lim) & \
-            (blocked < 0.5)
-        any_hit = jnp.any(box_hit)
-
-        is_leaf = header_ref[node * 8 + 7] > 0.5
-
-        def do_leaf(blocked):
-            row = rows_ref[pl.ds(node, 1), :]
-
-            def s(k):
-                return row[0, k]
-
-            ids_base = 8 + 9 * SLOT_N
-            for j in range(SLOT_N):
-                base = 8 + 9 * j
-                tri_id = row[0, ids_base + j]
-                opaque = (tri_id >= 0) & (tri_id == jnp.floor(tri_id))
-                ax, ay, az = s(base), s(base + 1), s(base + 2)
-                e1x, e1y, e1z = s(base + 3), s(base + 4), s(base + 5)
-                e2x, e2y, e2z = s(base + 6), s(base + 7), s(base + 8)
-                px = dy * e2z - dz * e2y
-                py = dz * e2x - dx * e2z
-                pz = dx * e2y - dy * e2x
-                det = e1x * px + e1y * py + e1z * pz
-                ok = jnp.abs(det) >= EPS
-                inv_det = 1.0 / jnp.where(ok, det, 1.0)
-                tvx, tvy, tvz = ox - ax, oy - ay, oz - az
-                u = (tvx * px + tvy * py + tvz * pz) * inv_det
-                qx = tvy * e1z - tvz * e1y
-                qy = tvz * e1x - tvx * e1z
-                qz = tvx * e1y - tvy * e1x
-                v = (dx * qx + dy * qy + dz * qz) * inv_det
-                t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-                hit = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & \
-                    (t > 1e-4) & (t < t_lim) & opaque & box_hit
-                blocked = jnp.maximum(blocked, hit.astype(jnp.float32))
-            return blocked
-
-        blocked = jax.lax.cond(is_leaf & any_hit, do_leaf,
-                               lambda b: b, blocked)
-
-        descend = any_hit & jnp.logical_not(is_leaf)
-        node = jnp.where(descend, node + 1,
-                         header_ref[node * 8 + 6].astype(jnp.int32))
-        return node, blocked
-
-    node0 = jnp.int32(0)
-    _, blocked = jax.lax.while_loop(cond, body, (node0, blocked0))
-    blocked_out[0] = blocked
-
-
-def trace_shadow_any(kbvh: KernelBVH, o, d, t_limit, interpret: bool = False):
-    """Any-hit opaque occlusion for a flat ray batch -> (N,) bool blocked.
-
-    Only available while the header fits SMEM; callers must check
-    `shadow_prepass_available(kbvh)` and fall back to the exact loop."""
-    n = o.shape[0]
-    pad = (-n) % BLOCK
-    if pad:
-        # Far-outside padding (see trace_rays_pallas); t_limit=0 also marks
-        # the lane blocked immediately in the any-hit kernel.
-        o = jnp.concatenate([o, jnp.full((pad, 3), 1.0e9, o.dtype)])
-        d = jnp.concatenate([d, jnp.tile(jnp.array([[0.0, 1.0, 0.0]]), (pad, 1))])
-        t_limit = jnp.concatenate([t_limit, jnp.zeros(pad)])
-    nb = o.shape[0] // BLOCK
-
-    def comp(x):
-        return x.reshape(nb, _SUB, 128)
-
-    rays = [comp(o[:, 0]), comp(o[:, 1]), comp(o[:, 2]),
-            comp(d[:, 0]), comp(d[:, 1]), comp(d[:, 2]),
-            comp(jnp.asarray(t_limit, jnp.float32))]
-    node_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    ray_spec = pl.BlockSpec((1, _SUB, 128), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    header = kbvh.rows[:, :8].reshape(-1)
-    blocked = pl.pallas_call(
-        _kernel_shadow_smem,
-        grid=(nb,),
-        in_specs=[smem_spec, node_spec] + [ray_spec] * 7,
-        out_specs=ray_spec,
-        out_shape=jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.float32),
-        interpret=interpret,
-    )(header, kbvh.rows, *rays)
-    return blocked.reshape(-1)[:n] > 0.5
-
-
-def shadow_prepass_available(rows) -> bool:
-    """Static check: the any-hit prepass needs the SMEM header to fit."""
-    return _USE_SMEM and rows.shape[0] <= _SMEM_MAX_NODES
-
-
-# ---------------------------------------------------------------------------
-# Shared-direction shadow-factor kernel.
-#
-# Every shadow ray in a frame points at the same directional light
-# (reference shades shadows for light 0 only, RayTracing.metalinc:332-372),
-# so the direction-dependent half of Moller-Trumbore can be hoisted out of
-# the kernel entirely: with fixed direction L,
-#   u = f * dot(P - a, cross(L, e2))   =  dot(P, g1) - c1
-#   v = f * dot(P - a, cross(e1, L))   =  dot(P, g2) - c2
-#   t = f * dot(P - a, cross(e1, e2))  =  dot(P, g3) - c3
-# (f = 1 / dot(e1, cross(L, e2))), i.e. each slot test is THREE dot
-# products of the ray origin against precomputed per-triangle constants —
-# ~9 FMAs instead of the ~35-op general intersection.
-#
-# The kernel also replaces the whole alpha-filter layer loop (an any-hit
-# prepass plus up to shadow_layers closest-hit walks) with ONE walk that
-# keeps, per lane, the nearest opaque t and the n_slots nearest translucent
-# (t, id) pairs via an in-register insertion network. The caller applies
-# the exact reference layer semantics (alpha product, <=0.02 early-out,
-# layer cap) as cheap elementwise XLA on those records.
-# ---------------------------------------------------------------------------
-
-# Per-slot constants: g1(3) g2(3) g3(3) c(3); ids appended after all slots.
-SHADOW_SLOT_F = 12
-SHADOW_ROW_W = SHADOW_SLOT_F * SLOT_N + SLOT_N
-
-
-def build_shadow_rows(rows, l):
-    """Per-frame XLA precompute for fixed ray direction ``l`` (unit, toward
-    the light): kernel rows -> (header (M*8,), leaf srows (Lp, SHADOW_ROW_W)).
-
-    The slot constants are stored for LEAF nodes only (interior rows carry
-    no triangles): every builder in render.bvh emits strictly binary trees,
-    so leaves <= (M+1)//2 — a static bound that halves the kernel's VMEM
-    footprint (the full-M table at lane-padded width 256 alone exceeds the
-    ~16 MB scoped budget at demo node counts). The compact leaf index is
-    encoded into the shadow header's leaf field: header[7] = leaf_idx + 1
-    for leaves (still > 0.5), 0 for interior."""
-    m = rows.shape[0]
-    is_leaf = rows[:, 7] > 0.5
-    lp = ((m + 1) // 2 + 7) // 8 * 8
-    leaf_nodes = jnp.nonzero(is_leaf, size=lp, fill_value=0)[0]
-    leaf_rows = rows[leaf_nodes]
-    header = rows[:, :8]
-    leaf_rank = jnp.cumsum(is_leaf.astype(jnp.float32))
-    header = header.at[:, 7].set(jnp.where(is_leaf, leaf_rank, 0.0))
-
-    tri = leaf_rows[:, 8:8 + 9 * SLOT_N].reshape(lp, SLOT_N, 9)
-    a = tri[..., 0:3]
-    e1 = tri[..., 3:6]
-    e2 = tri[..., 6:9]
-    ids = leaf_rows[:, 8 + 9 * SLOT_N: 8 + 10 * SLOT_N]
-
-    lv = jnp.broadcast_to(jnp.asarray(l, jnp.float32), e2.shape)
-    h = jnp.cross(lv, e2)
-    det = jnp.sum(e1 * h, axis=-1)
-    ok = jnp.abs(det) >= EPS
-    f = 1.0 / jnp.where(ok, det, 1.0)
-    g1 = h * f[..., None]
-    g2 = jnp.cross(e1, lv) * f[..., None]
-    g3 = jnp.cross(e1, e2) * f[..., None]
-    c = jnp.stack([jnp.sum(a * g1, -1), jnp.sum(a * g2, -1),
-                   jnp.sum(a * g3, -1)], axis=-1)
-    slot = jnp.concatenate([g1, g2, g3, c], axis=-1)      # (Lp, SLOT_N, 12)
-    ids = jnp.where(ok, ids, -1.0)
-    srows = jnp.concatenate([slot.reshape(lp, SHADOW_SLOT_F * SLOT_N), ids],
-                            axis=-1)
-    return header.reshape(-1), srows
-
-
-def _kernel_shadow_factor(header_ref, dir_ref, srows_ref, ox_ref, oy_ref,
-                          oz_ref, tlim_ref, topq_out, ts_out, ids_out, *,
-                          n_slots: int):
-    """One skip-link walk -> per lane: nearest opaque t + the ``n_slots``
-    nearest translucent (t, id) pairs (sorted ascending by construction).
-
-    Each triangle lives in exactly one leaf and every node is visited at
-    most once, so the insertion network can never double-insert. The lane
-    prune bound is min(t_lim, t_opaque, last translucent slot): hits beyond
-    it can change nothing."""
-    px = ox_ref[0]
-    py = oy_ref[0]
-    pz = oz_ref[0]
-    t_lim = tlim_ref[0]
-
-    big = jnp.full(px.shape, BIG, jnp.float32)
-    # inactive lanes (t_lim <= 0) get bound 0 so no box ever passes
-    topq0 = jnp.where(t_lim <= 0.0, 0.0, big)
-    init = (jnp.int32(0), topq0) + tuple(big for _ in range(n_slots)) + \
-        tuple(jnp.full(px.shape, -1.0, jnp.float32) for _ in range(n_slots))
-
-    inv_x = dir_ref[0]
-    inv_y = dir_ref[1]
-    inv_z = dir_ref[2]
-
-    def cond(c):
-        return c[0] >= 0
-
-    def body(c):
-        node = c[0]
-        t_opq = c[1]
-        ts = list(c[2:2 + n_slots])
-        ids = list(c[2 + n_slots:])
-
-        tx0 = (header_ref[node * 8 + 0] - px) * inv_x
-        tx1 = (header_ref[node * 8 + 3] - px) * inv_x
-        ty0 = (header_ref[node * 8 + 1] - py) * inv_y
-        ty1 = (header_ref[node * 8 + 4] - py) * inv_y
-        tz0 = (header_ref[node * 8 + 2] - pz) * inv_z
-        tz1 = (header_ref[node * 8 + 5] - pz) * inv_z
-        tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx0, tx1),
-                                       jnp.minimum(ty0, ty1)),
-                           jnp.minimum(tz0, tz1))
-        tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx0, tx1),
-                                       jnp.maximum(ty0, ty1)),
-                           jnp.maximum(tz0, tz1))
-        bound = jnp.minimum(jnp.minimum(t_lim, t_opq), ts[n_slots - 1])
-        box_hit = (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < bound)
-        any_hit = jnp.any(box_hit)
-
-        is_leaf = header_ref[node * 8 + 7] > 0.5
-
-        def do_leaf(args):
-            t_opq = args[0]
-            ts = list(args[1:1 + n_slots])
-            ids = list(args[1 + n_slots:])
-            # shadow header field 7 = compact leaf index + 1 (see
-            # build_shadow_rows); srows holds leaf rows only.
-            leaf_slot = header_ref[node * 8 + 7].astype(jnp.int32) - 1
-            row = srows_ref[pl.ds(leaf_slot, 1), :]
-
-            def s(k):
-                return row[0, k]
-
-            for j in range(SLOT_N):
-                base = SHADOW_SLOT_F * j
-                tri_id = row[0, SHADOW_SLOT_F * SLOT_N + j]
-                u = px * s(base + 0) + py * s(base + 1) + pz * s(base + 2) \
-                    - s(base + 9)
-                v = px * s(base + 3) + py * s(base + 4) + pz * s(base + 5) \
-                    - s(base + 10)
-                t = px * s(base + 6) + py * s(base + 7) + pz * s(base + 8) \
-                    - s(base + 11)
-                hit = (tri_id >= 0) & (u >= 0) & (u <= 1) & (v >= 0) & \
-                    (u + v <= 1) & (t > 1e-4) & (t < t_lim) & box_hit
-                opaque = tri_id == jnp.floor(tri_id)
-                t_opq = jnp.where(hit & opaque, jnp.minimum(t_opq, t), t_opq)
-                ct = jnp.where(hit & ~opaque, t, BIG)
-                cid = jnp.where(hit & ~opaque, tri_id, -1.0)
-                for k in range(n_slots):
-                    win = ct < ts[k]
-                    nt = jnp.where(win, ct, ts[k])
-                    nid = jnp.where(win, cid, ids[k])
-                    ct, cid = (jnp.where(win, ts[k], ct),
-                               jnp.where(win, ids[k], cid))
-                    ts[k], ids[k] = nt, nid
-            return (t_opq,) + tuple(ts) + tuple(ids)
-
-        out = jax.lax.cond(is_leaf & any_hit, do_leaf, lambda a: a,
-                           (t_opq,) + tuple(ts) + tuple(ids))
-        t_opq = out[0]
-        ts = list(out[1:1 + n_slots])
-        ids = list(out[1 + n_slots:])
-
-        descend = any_hit & jnp.logical_not(is_leaf)
-        node = jnp.where(descend, node + 1,
-                         header_ref[node * 8 + 6].astype(jnp.int32))
-        return (node, t_opq) + tuple(ts) + tuple(ids)
-
-    out = jax.lax.while_loop(cond, body, init)
-    topq_out[0] = out[1]
-    for k in range(n_slots):
-        ts_out[0, k] = out[2 + k]
-        ids_out[0, k] = out[2 + n_slots + k]
-
-
-def trace_shadow_factor(shadow_rows, l, o, t_limit,
-                        n_slots: int = 4, interpret: bool = False):
-    """Shared-direction shadow records for a flat origin batch.
-
-    ``shadow_rows`` is build_shadow_rows' (header, leaf srows) pair.
-    Returns (t_opq (N,), ts (N, n_slots), ids (N, n_slots) float with the
-    translucent +0.5 marker still applied). Callers must check
-    `shadow_prepass_available(rows)`."""
-    header, srows = shadow_rows
-    n = o.shape[0]
-    pad = (-n) % BLOCK
-    if pad:
-        o = jnp.concatenate([o, jnp.full((pad, 3), 1.0e9, o.dtype)])
-        t_limit = jnp.concatenate([t_limit, jnp.zeros(pad)])
-    nb = o.shape[0] // BLOCK
-
-    def comp(x):
-        return x.reshape(nb, _SUB, 128)
-
-    def safe_inv(v):
-        tiny = jnp.abs(v) < 1e-12
-        vs = jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
-        return 1.0 / vs
-
-    lv = jnp.asarray(l, jnp.float32)
-    inv_dir = safe_inv(lv)
-    rays = [comp(o[:, 0]), comp(o[:, 1]), comp(o[:, 2]),
-            comp(jnp.asarray(t_limit, jnp.float32))]
-    node_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    ray_spec = pl.BlockSpec((1, _SUB, 128), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    slot_spec = pl.BlockSpec((1, n_slots, _SUB, 128), lambda i: (i, 0, 0, 0),
-                             memory_space=pltpu.VMEM)
-    topq, ts, ids = pl.pallas_call(
-        partial(_kernel_shadow_factor, n_slots=n_slots),
-        grid=(nb,),
-        in_specs=[smem_spec, smem_spec, node_spec] + [ray_spec] * 4,
-        out_specs=(ray_spec, slot_spec, slot_spec),
-        out_shape=(
-            jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.float32),
-            jax.ShapeDtypeStruct((nb, n_slots, _SUB, 128), jnp.float32),
-            jax.ShapeDtypeStruct((nb, n_slots, _SUB, 128), jnp.float32),
-        ),
-        interpret=interpret,
-    )(header, inv_dir, srows, *rays)
-    topq = topq.reshape(-1)[:n]
-    ts = ts.transpose(0, 2, 3, 1).reshape(-1, n_slots)[:n]
-    ids = ids.transpose(0, 2, 3, 1).reshape(-1, n_slots)[:n]
-    return topq, ts, ids
-
-
-# ---------------------------------------------------------------------------
-# Shared-ORIGIN closest-hit kernel (primary rays + transparency layers).
-#
-# Primary rays all start at the camera, and a transparency continuation ray
-# is the SAME line with a larger t, so one per-frame precompute against the
-# shared origin o makes Moller-Trumbore linear in the ray DIRECTION:
-#   u = d.k_u / d.k_d     k_u = e2 x (o - a)
-#   v = d.k_v / d.k_d     k_v = (o - a) x e1
-#   t = tn    / d.k_d     k_d = e2 x e1,  tn = e2 . k_v   (scalar!)
-# A slot test is 3 dot products against constants + sign-folded compares —
-# no cross products, no division until the accepted hit. Transparency
-# layers 2+ re-trace the ORIGINAL camera ray with a per-lane ``t_floor``
-# (t_hit + 2*bias) instead of an offset origin — same surface-skip
-# semantics as the reference's biased continuation origin
-# (RayTracing.metalinc:726-737), one kernel for every layer.
-# Traversal is the near-first ordered walk (same header/stack as
-# _kernel_smem_ordered); constants live in leaf-compacted rows like the
-# shadow kernel's.
-# ---------------------------------------------------------------------------
-
-SO_SLOT_F = 10
-SO_ROW_W = SO_SLOT_F * SLOT_N + SLOT_N
-
-
-def build_origin_rows(rows, o):
-    """Per-frame XLA precompute for shared ray origin ``o``: kernel rows ->
-    (header (M*8,) with compact leaf ranks, leaf srows (Lp, SO_ROW_W)).
-
-    Leaf-compacted exactly like build_shadow_rows (binary trees bound
-    leaves by (M+1)//2); header[7] carries leaf_rank+0 (>0.5 for leaves)."""
-    m = rows.shape[0]
-    is_leaf = rows[:, 7] > 0.5
-    lp = ((m + 1) // 2 + 7) // 8 * 8
-    leaf_nodes = jnp.nonzero(is_leaf, size=lp, fill_value=0)[0]
-    leaf_rows = rows[leaf_nodes]
-    header = rows[:, :8]
-    leaf_rank = jnp.cumsum(is_leaf.astype(jnp.float32))
-    header = header.at[:, 7].set(jnp.where(is_leaf, leaf_rank, 0.0))
-
-    tri = leaf_rows[:, 8:8 + 9 * SLOT_N].reshape(lp, SLOT_N, 9)
-    a = tri[..., 0:3]
-    e1 = tri[..., 3:6]
-    e2 = tri[..., 6:9]
-    ids = leaf_rows[:, 8 + 9 * SLOT_N: 8 + 10 * SLOT_N]
-
-    tv = jnp.asarray(o, jnp.float32) - a
-    k_u = jnp.cross(e2, tv)
-    k_v = jnp.cross(tv, e1)
-    k_d = jnp.cross(e2, e1)
-    tn = jnp.sum(e2 * k_v, axis=-1, keepdims=True)
-    slot = jnp.concatenate([k_u, k_v, k_d, tn], axis=-1)  # (Lp, SLOT_N, 10)
-    srows = jnp.concatenate([slot.reshape(lp, SO_SLOT_F * SLOT_N), ids],
-                            axis=-1)
-    return header.reshape(-1), srows
-
-
-def _kernel_so_ordered(header_ref, origin_ref, srows_ref,
-                       dx_ref, dy_ref, dz_ref, tmax_ref, tfloor_ref,
-                       t_out, tri_out, stack_ref):
-    """Near-first ordered traversal with shared-origin leaf tests.
-
-    The origin is a (3,) SMEM scalar: slab offsets (bmin - o) become scalar
-    subtracts (the general kernels pay 6 vector subtracts per step).
-    Inactive lanes are masked by t_max = 0, NOT by parked origins — parked
-    origins would break the baked leaf constants."""
-    ox = origin_ref[0]
-    oy = origin_ref[1]
-    oz = origin_ref[2]
-    dx = dx_ref[0]
-    dy = dy_ref[0]
-    dz = dz_ref[0]
-    t_floor = tfloor_ref[0]
-
-    def safe_inv(v):
-        tiny = jnp.abs(v) < 1e-12
-        vs = jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
-        return 1.0 / vs
-
-    inv_x = safe_inv(dx)
-    inv_y = safe_inv(dy)
-    inv_z = safe_inv(dz)
-
-    t0 = tmax_ref[0]
-    tri0 = jnp.full(t0.shape, -1.0, jnp.float32)
-
-    def slab(node, t_best):
-        tx0 = (header_ref[node * 8 + 0] - ox) * inv_x
-        tx1 = (header_ref[node * 8 + 3] - ox) * inv_x
-        ty0 = (header_ref[node * 8 + 1] - oy) * inv_y
-        ty1 = (header_ref[node * 8 + 4] - oy) * inv_y
-        tz0 = (header_ref[node * 8 + 2] - oz) * inv_z
-        tz1 = (header_ref[node * 8 + 5] - oz) * inv_z
-        tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx0, tx1),
-                                       jnp.minimum(ty0, ty1)),
-                           jnp.minimum(tz0, tz1))
-        tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx0, tx1),
-                                       jnp.maximum(ty0, ty1)),
-                           jnp.maximum(tz0, tz1))
-        box_hit = (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < t_best)
-        return box_hit, tmin
-
-    def cond(c):
-        return c[0] >= 0
-
-    def body(c):
-        node, sp, t_best, tri_best = c
-        hdr7 = header_ref[node * 8 + 7]
-        is_leaf = hdr7 > 0.5
-
-        def do_leaf(args):
-            tb, trib = args
-            box_hit, _ = slab(node, tb)
-            leaf_slot = hdr7.astype(jnp.int32) - 1
-            row = srows_ref[pl.ds(leaf_slot, 1), :]
-
-            def s(k):
-                return row[0, k]
-
-            ids_base = SO_SLOT_F * SLOT_N
-            for j in range(SLOT_N):
-                base = SO_SLOT_F * j
-                tri_id = row[0, ids_base + j]
-                un = dx * s(base + 0) + dy * s(base + 1) + dz * s(base + 2)
-                vn = dx * s(base + 3) + dy * s(base + 4) + dz * s(base + 5)
-                dn = dx * s(base + 6) + dy * s(base + 7) + dz * s(base + 8)
-                tn = s(base + 9)
-                sgn = jnp.where(dn < 0, -1.0, 1.0)
-                dnp = dn * sgn
-                un_s = un * sgn
-                vn_s = vn * sgn
-                tn_s = tn * sgn
-                hit = (tri_id >= 0) & (dnp >= EPS) & (un_s >= 0) & \
-                    (un_s <= dnp) & (vn_s >= 0) & (un_s + vn_s <= dnp) & \
-                    (tn_s > t_floor * dnp) & (tn_s < tb * dnp) & box_hit
-                t = tn_s / jnp.where(dnp >= EPS, dnp, 1.0)
-                tb = jnp.where(hit, t, tb)
-                trib = jnp.where(hit, tri_id, trib)
-            return tb, trib
-
-        t_best, tri_best = jax.lax.cond(
-            is_leaf, do_leaf, lambda args: args, (t_best, tri_best))
-
-        left = node + 1
-        big = jnp.float32(3.0e38)
-
-        def child_keys(_):
-            r = header_ref[left * 8 + 6].astype(jnp.int32)
-            bh_l, tmin_l = slab(left, t_best)
-            bh_r, tmin_r = slab(r, t_best)
-            key_l = jnp.min(jnp.where(bh_l, tmin_l, big))
-            key_r = jnp.min(jnp.where(bh_r, tmin_r, big))
-            return r, key_l, key_r
-
-        right, key_l, key_r = jax.lax.cond(
-            is_leaf, lambda _: (jnp.int32(0), big, big), child_keys, 0)
-
-        hit_l = key_l < big
-        hit_r = key_r < big
-        both = hit_l & hit_r
-        near = jnp.where(key_l <= key_r, left, right)
-        far = left + right - near
-
-        @pl.when(both)
-        def _():
-            stack_ref[jnp.minimum(sp, _STACK_MAX - 1)] = far
-
-        sp = jnp.minimum(sp + both.astype(jnp.int32), _STACK_MAX - 1)
-        descend = (~is_leaf) & (hit_l | hit_r)
-        do_pop = jnp.logical_not(descend)
-        sp_pop = sp - do_pop.astype(jnp.int32)
-        popped = stack_ref[jnp.maximum(sp_pop, 0)]
-        node = jnp.where(descend,
-                         jnp.where(both, near, jnp.where(hit_l, left, right)),
-                         jnp.where(sp_pop >= 0, popped, -1))
-        return node, jnp.maximum(sp_pop, 0), t_best, tri_best
-
-    node0 = jnp.int32(0)
-    sp0 = jnp.int32(0)
-    _, _, t_best, tri_best = jax.lax.while_loop(
-        cond, body, (node0, sp0, t0, tri0))
-    t_out[0] = t_best
-    tri_out[0] = tri_best.astype(jnp.int32)
-
-
-def so_available(rows) -> bool:
-    """Shared-origin kernel eligibility (SMEM header + ordered walk)."""
-    return _USE_SMEM and _USE_ORDERED and rows.shape[0] <= _SMEM_MAX_NODES
-
-
-def trace_rays_so(origin_rows, o, d, t_max, t_floor=None,
-                  interpret: bool = False):
-    """Closest-hit trace for rays sharing origin ``o`` ((3,) — MUST equal
-    the origin baked into ``origin_rows`` by build_origin_rows). Inactive
-    lanes: t_max <= 0. ``t_floor``: per-lane minimum accepted t (default
-    1e-4) — transparency continuation along the same line passes
-    t_hit + 2*bias here. Returns (t (N,), tri (N,) int32)."""
-    header, srows = origin_rows
-    n = d.shape[0]
-    pad = (-n) % BLOCK
-    if pad:
-        d = jnp.concatenate([d, jnp.tile(jnp.array([[0.0, 1.0, 0.0]]),
-                                         (pad, 1))])
-        t_max = jnp.concatenate([t_max, jnp.zeros(pad)])
-        if t_floor is not None:
-            t_floor = jnp.concatenate([t_floor, jnp.zeros(pad)])
-    if t_floor is None:
-        t_floor = jnp.full(d.shape[0], 1e-4, jnp.float32)
-    nb = d.shape[0] // BLOCK
-
-    def comp(x):
-        return x.reshape(nb, _SUB, 128)
-
-    rays = [comp(d[:, 0]), comp(d[:, 1]), comp(d[:, 2]),
-            comp(jnp.asarray(t_max, jnp.float32)),
-            comp(jnp.asarray(t_floor, jnp.float32))]
-    node_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    ray_spec = pl.BlockSpec((1, _SUB, 128), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    t, tri = pl.pallas_call(
-        _kernel_so_ordered,
-        grid=(nb,),
-        in_specs=[smem_spec, smem_spec, node_spec] + [ray_spec] * 5,
-        out_specs=(ray_spec, ray_spec),
-        out_shape=(jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.float32),
-                   jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.int32)),
-        scratch_shapes=[pltpu.SMEM((_STACK_MAX,), jnp.int32)],
-        interpret=interpret,
-    )(header, jnp.asarray(o, jnp.float32), srows, *rays)
-    return t.reshape(-1)[:n], tri.reshape(-1)[:n]
-
-
-def _kernel_layers_so(header_ref, origin_ref, srows_ref,
-                      dx_ref, dy_ref, dz_ref, tmax_ref,
-                      topq_out, otri_out, ts_out, ids_out, stack_ref, *,
-                      n_slots: int):
-    """ONE near-first ordered shared-origin walk -> per lane: the nearest
-    OPAQUE hit (t, id) plus the ``n_slots`` nearest TRANSLUCENT (t, id)
-    pairs in front of it (sorted ascending by the insertion network).
-
-    This collapses the whole transparency cascade — a dense primary trace
-    plus up to (max_layers-1) chunk-compacted continuation re-traces of the
-    SAME camera rays with rising t floors (see rt._render_rays) — into a
-    single traversal: the front-to-back layer sequence is by definition the
-    sorted translucent hits nearer than the nearest opaque hit, then that
-    opaque hit. Layer semantics (alpha accumulation, 0.99 saturation, the
-    2*bias continuation skip) are applied elementwise on the records by the
-    caller, exactly like the shadow-factor kernel's contract.
-
-    The per-lane prune bound is min(t_max, t_opq, last translucent slot):
-    weaker than a closest-hit walk's t_best wherever a lane still has open
-    translucent slots, but those extra visited nodes are the ones the
-    continuation re-traces would have re-walked from the root anyway."""
-    ox = origin_ref[0]
-    oy = origin_ref[1]
-    oz = origin_ref[2]
-    dx = dx_ref[0]
-    dy = dy_ref[0]
-    dz = dz_ref[0]
-
-    def safe_inv(v):
-        tiny = jnp.abs(v) < 1e-12
-        vs = jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
-        return 1.0 / vs
-
-    inv_x = safe_inv(dx)
-    inv_y = safe_inv(dy)
-    inv_z = safe_inv(dz)
-
-    t0 = tmax_ref[0]
-    bigv = jnp.full(t0.shape, BIG, jnp.float32)
-    # inactive lanes (t_max <= 0) start settled: no box test ever passes
-    topq0 = jnp.where(t0 <= 0.0, 0.0, bigv)
-    none0 = jnp.full(t0.shape, -1.0, jnp.float32)
-
-    def slab(node, bound):
-        tx0 = (header_ref[node * 8 + 0] - ox) * inv_x
-        tx1 = (header_ref[node * 8 + 3] - ox) * inv_x
-        ty0 = (header_ref[node * 8 + 1] - oy) * inv_y
-        ty1 = (header_ref[node * 8 + 4] - oy) * inv_y
-        tz0 = (header_ref[node * 8 + 2] - oz) * inv_z
-        tz1 = (header_ref[node * 8 + 5] - oz) * inv_z
-        tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx0, tx1),
-                                       jnp.minimum(ty0, ty1)),
-                           jnp.minimum(tz0, tz1))
-        tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx0, tx1),
-                                       jnp.maximum(ty0, ty1)),
-                           jnp.maximum(tz0, tz1))
-        box_hit = (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < bound)
-        return box_hit, tmin
-
-    def cond(c):
-        return c[0] >= 0
-
-    def body(c):
-        node, sp = c[0], c[1]
-        t_opq, tri_opq = c[2], c[3]
-        ts = list(c[4:4 + n_slots])
-        ids = list(c[4 + n_slots:])
-        bound = jnp.minimum(jnp.minimum(t0, t_opq), ts[n_slots - 1])
-
-        hdr7 = header_ref[node * 8 + 7]
-        is_leaf = hdr7 > 0.5
-
-        def do_leaf(args):
-            t_opq, tri_opq = args[0], args[1]
-            ts = list(args[2:2 + n_slots])
-            ids = list(args[2 + n_slots:])
-            box_hit, _ = slab(node, bound)
-            leaf_slot = hdr7.astype(jnp.int32) - 1
-            row = srows_ref[pl.ds(leaf_slot, 1), :]
-
-            def s(k):
-                return row[0, k]
-
-            ids_base = SO_SLOT_F * SLOT_N
-            for j in range(SLOT_N):
-                base = SO_SLOT_F * j
-                tri_id = row[0, ids_base + j]
-                un = dx * s(base + 0) + dy * s(base + 1) + dz * s(base + 2)
-                vn = dx * s(base + 3) + dy * s(base + 4) + dz * s(base + 5)
-                dn = dx * s(base + 6) + dy * s(base + 7) + dz * s(base + 8)
-                tn = s(base + 9)
-                sgn = jnp.where(dn < 0, -1.0, 1.0)
-                dnp = dn * sgn
-                un_s = un * sgn
-                vn_s = vn * sgn
-                tn_s = tn * sgn
-                t = tn_s / jnp.where(dnp >= EPS, dnp, 1.0)
-                hit = (tri_id >= 0) & (dnp >= EPS) & (un_s >= 0) & \
-                    (un_s <= dnp) & (vn_s >= 0) & (un_s + vn_s <= dnp) & \
-                    (tn_s > 1e-4 * dnp) & (t < bound) & box_hit
-                opaque = tri_id == jnp.floor(tri_id)
-                owin = hit & opaque & (t < t_opq)
-                t_opq = jnp.where(owin, t, t_opq)
-                tri_opq = jnp.where(owin, tri_id, tri_opq)
-                ct = jnp.where(hit & ~opaque, t, BIG)
-                cid = jnp.where(hit & ~opaque, tri_id, -1.0)
-                for k in range(n_slots):
-                    win = ct < ts[k]
-                    nt = jnp.where(win, ct, ts[k])
-                    nid = jnp.where(win, cid, ids[k])
-                    ct, cid = (jnp.where(win, ts[k], ct),
-                               jnp.where(win, ids[k], cid))
-                    ts[k], ids[k] = nt, nid
-            return (t_opq, tri_opq) + tuple(ts) + tuple(ids)
-
-        out = jax.lax.cond(is_leaf, do_leaf, lambda a: a,
-                           (t_opq, tri_opq) + tuple(ts) + tuple(ids))
-        t_opq, tri_opq = out[0], out[1]
-        ts = list(out[2:2 + n_slots])
-        ids = list(out[2 + n_slots:])
-
-        left = node + 1
-        big = jnp.float32(3.0e38)
-
-        def child_keys(_):
-            r = header_ref[left * 8 + 6].astype(jnp.int32)
-            bh_l, tmin_l = slab(left, bound)
-            bh_r, tmin_r = slab(r, bound)
-            key_l = jnp.min(jnp.where(bh_l, tmin_l, big))
-            key_r = jnp.min(jnp.where(bh_r, tmin_r, big))
-            return r, key_l, key_r
-
-        right, key_l, key_r = jax.lax.cond(
-            is_leaf, lambda _: (jnp.int32(0), big, big), child_keys, 0)
-
-        hit_l = key_l < big
-        hit_r = key_r < big
-        both = hit_l & hit_r
-        near = jnp.where(key_l <= key_r, left, right)
-        far = left + right - near
-
-        @pl.when(both)
-        def _():
-            stack_ref[jnp.minimum(sp, _STACK_MAX - 1)] = far
-
-        sp = jnp.minimum(sp + both.astype(jnp.int32), _STACK_MAX - 1)
-        descend = (~is_leaf) & (hit_l | hit_r)
-        do_pop = jnp.logical_not(descend)
-        sp_pop = sp - do_pop.astype(jnp.int32)
-        popped = stack_ref[jnp.maximum(sp_pop, 0)]
-        node = jnp.where(descend,
-                         jnp.where(both, near, jnp.where(hit_l, left, right)),
-                         jnp.where(sp_pop >= 0, popped, -1))
-        return (node, jnp.maximum(sp_pop, 0), t_opq, tri_opq) + \
-            tuple(ts) + tuple(ids)
-
-    init = (jnp.int32(0), jnp.int32(0), topq0, none0) + \
-        tuple(bigv for _ in range(n_slots)) + \
-        tuple(none0 for _ in range(n_slots))
-    out = jax.lax.while_loop(cond, body, init)
-    topq_out[0] = out[2]
-    otri_out[0] = out[3].astype(jnp.int32)
-    for k in range(n_slots):
-        ts_out[0, k] = out[4 + k]
-        ids_out[0, k] = out[4 + n_slots + k]
-
-
-def trace_layers_so(origin_rows, o, d, t_max, n_slots: int = 3,
-                    interpret: bool = False):
-    """Layered closest-hit records for rays sharing origin ``o``: one walk
-    -> (t_opq (N,), tri_opq (N,) int32, ts (N, n_slots), ids (N, n_slots)
-    float, translucent +0.5 marker preserved). Inactive lanes: t_max <= 0.
-    See _kernel_layers_so."""
-    header, srows = origin_rows
-    n = d.shape[0]
-    pad = (-n) % BLOCK
-    if pad:
-        d = jnp.concatenate([d, jnp.tile(jnp.array([[0.0, 1.0, 0.0]]),
-                                         (pad, 1))])
-        t_max = jnp.concatenate([t_max, jnp.zeros(pad)])
-    nb = d.shape[0] // BLOCK
-
-    def comp(x):
-        return x.reshape(nb, _SUB, 128)
-
-    rays = [comp(d[:, 0]), comp(d[:, 1]), comp(d[:, 2]),
-            comp(jnp.asarray(t_max, jnp.float32))]
-    node_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    ray_spec = pl.BlockSpec((1, _SUB, 128), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    slot_spec = pl.BlockSpec((1, n_slots, _SUB, 128), lambda i: (i, 0, 0, 0),
-                             memory_space=pltpu.VMEM)
-    topq, otri, ts, ids = pl.pallas_call(
-        partial(_kernel_layers_so, n_slots=n_slots),
-        grid=(nb,),
-        in_specs=[smem_spec, smem_spec, node_spec] + [ray_spec] * 4,
-        out_specs=(ray_spec, ray_spec, slot_spec, slot_spec),
-        out_shape=(
-            jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.float32),
-            jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.int32),
-            jax.ShapeDtypeStruct((nb, n_slots, _SUB, 128), jnp.float32),
-            jax.ShapeDtypeStruct((nb, n_slots, _SUB, 128), jnp.float32),
-        ),
-        scratch_shapes=[pltpu.SMEM((_STACK_MAX,), jnp.int32)],
-        interpret=interpret,
-    )(header, jnp.asarray(o, jnp.float32), srows, *rays)
-    topq = topq.reshape(-1)[:n]
-    otri = otri.reshape(-1)[:n]
-    ts = ts.transpose(0, 2, 3, 1).reshape(-1, n_slots)[:n]
-    ids = ids.transpose(0, 2, 3, 1).reshape(-1, n_slots)[:n]
-    return topq, otri, ts, ids
-
-
-def _kernel(rows_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-            tmax_ref, t_out, tri_out):
-    ox = ox_ref[0]
-    oy = oy_ref[0]
-    oz = oz_ref[0]
-    dx = dx_ref[0]
-    dy = dy_ref[0]
-    dz = dz_ref[0]
-
-    def safe_inv(v):
-        tiny = jnp.abs(v) < 1e-12
-        vs = jnp.where(tiny, jnp.where(v < 0, -1e-12, 1e-12), v)
-        return 1.0 / vs
-
-    inv_x = safe_inv(dx)
-    inv_y = safe_inv(dy)
-    inv_z = safe_inv(dz)
-
-    t0 = tmax_ref[0]
-    tri0 = jnp.full(t0.shape, -1.0, jnp.float32)
-
-    def cond(c):
-        node, _, _ = c
-        return node >= 0
+        return jnp.max(c[0]) >= 0
 
     def body(c):
         node, t_best, tri_best = c
-        row = rows_ref[pl.ds(node, 1), :]     # (1, 128) dynamic-sublane load
+        alive = node >= 0
+        base = jnp.maximum(node, 0) * ROW
 
-        def s(k):
-            return row[0, k]
+        def h(k):
+            return rows_ref[base + k]
 
-        tx0 = (s(0) - ox) * inv_x
-        tx1 = (s(3) - ox) * inv_x
-        ty0 = (s(1) - oy) * inv_y
-        ty1 = (s(4) - oy) * inv_y
-        tz0 = (s(2) - oz) * inv_z
-        tz1 = (s(5) - oz) * inv_z
+        tx0 = (h(0) - ox) * inv_x
+        tx1 = (h(3) - ox) * inv_x
+        ty0 = (h(1) - oy) * inv_y
+        ty1 = (h(4) - oy) * inv_y
+        tz0 = (h(2) - oz) * inv_z
+        tz1 = (h(5) - oz) * inv_z
         tmin = jnp.maximum(jnp.maximum(jnp.minimum(tx0, tx1),
                                        jnp.minimum(ty0, ty1)),
                            jnp.minimum(tz0, tz1))
         tmax = jnp.minimum(jnp.minimum(jnp.maximum(tx0, tx1),
                                        jnp.maximum(ty0, ty1)),
                            jnp.maximum(tz0, tz1))
-        box_hit = (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < t_best)
-        any_hit = jnp.any(box_hit)
-
-        is_leaf = s(7) > 0.5
-
-        def do_leaf(args):
-            tb, trib = args
-            ids_base = 8 + 9 * SLOT_N
-            for j in range(SLOT_N):
-                base = 8 + 9 * j
-                tri_id = row[0, ids_base + j]
-                valid = tri_id >= 0
-                ax, ay, az = s(base), s(base + 1), s(base + 2)
-                e1x, e1y, e1z = s(base + 3), s(base + 4), s(base + 5)
-                e2x, e2y, e2z = s(base + 6), s(base + 7), s(base + 8)
-                px = dy * e2z - dz * e2y
-                py = dz * e2x - dx * e2z
-                pz = dx * e2y - dy * e2x
-                det = e1x * px + e1y * py + e1z * pz
-                ok = jnp.abs(det) >= EPS
-                inv_det = 1.0 / jnp.where(ok, det, 1.0)
-                tvx, tvy, tvz = ox - ax, oy - ay, oz - az
-                u = (tvx * px + tvy * py + tvz * pz) * inv_det
-                qx = tvy * e1z - tvz * e1y
-                qy = tvz * e1x - tvx * e1z
-                qz = tvx * e1y - tvy * e1x
-                v = (dx * qx + dy * qy + dz * qz) * inv_det
-                t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-                hit = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & \
-                    (t > 1e-4) & (t < tb) & valid & box_hit
-                tb = jnp.where(hit, t, tb)
-                trib = jnp.where(hit, tri_id, trib)
-            return tb, trib
-
-        if _PROFILE_NOLEAF:
-            t_best = jnp.where(is_leaf & any_hit, t_best * 1.0000001, t_best)
-        else:
-            t_best, tri_best = jax.lax.cond(
-                is_leaf & any_hit, do_leaf, lambda args: args, (t_best, tri_best))
-
-        descend = any_hit & jnp.logical_not(is_leaf)
-        node = jnp.where(descend, node + 1, s(6).astype(jnp.int32))
+        box_hit = alive & (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < t_best)
+        is_leaf = h(7) > 0.5
+        on_leaf = box_hit & is_leaf
+        t_best, tri_best = jax.lax.cond(
+            jnp.max(on_leaf.astype(jnp.int32)) > 0,
+            lambda a: leaf_tests(base, on_leaf, *a), lambda a: a,
+            (t_best, tri_best))
+        skip = h(6).astype(jnp.int32)
+        node = jnp.where(alive, jnp.where(box_hit & ~is_leaf, node + 1, skip),
+                         -1)
         return node, t_best, tri_best
 
-    node0 = jnp.int32(0)
-    _, t_best, tri_best = jax.lax.while_loop(cond, body, (node0, t0, tri0))
-    t_out[0] = t_best
-    tri_out[0] = tri_best.astype(jnp.int32)
+    node0 = jnp.where(t_max > 0, 0, -1).astype(jnp.int32)
+    tri0 = jnp.full(t_max.shape, -1.0, jnp.float32)
+    _, t_best, tri_best = jax.lax.while_loop(cond, body, (node0, t_max, tri0))
+    t_ref[...] = t_best
+    tri_ref[...] = tri_best.astype(jnp.int32)
 
 
-def trace_rays_pallas(kbvh: KernelBVH, o, d, t_max, interpret: bool = False):
-    """Packet-traverse a flat ray batch. Returns (t, tri_index (int32))."""
+def trace_rays(rows, o, d, t_max, interpret: bool = False):
+    """Closest hit for a flat ray batch.
+
+    ``rows``: (M, ROW) packed tree (``render.bvh.pack_rows``); ``o``/``d``:
+    (N, 3); ``t_max``: (N,) — lanes with ``t_max <= 0`` are inactive and
+    exit at once. Returns (t (N,) f32, tri (N,) int32): ``tri`` is the
+    original triangle id, -1 (with ``t == t_max``) where nothing was hit.
+    ``interpret`` runs the kernel in the Pallas interpreter (tests only).
+    """
     n = o.shape[0]
-    # The dual-packet kernel pairs packets, so pad to an even packet count.
-    quantum = 2 * BLOCK if (_USE_ORDERED and _USE_DUAL) else BLOCK
-    pad = (-n) % quantum
+    pad = (-n) % RAYS_PER_PROGRAM
+    t_max = jnp.asarray(t_max, jnp.float32)
     if pad:
-        # Park padded lanes far outside any scene AABB: a (0,0,0) origin
-        # inside the scene keeps box_hit true (tmin<0<=tmax) on every node,
-        # making a fully-padded tail packet walk the whole tree.
-        o = jnp.concatenate([o, jnp.full((pad, 3), 1.0e9, o.dtype)])
-        d = jnp.concatenate([d, jnp.tile(jnp.array([[0.0, 1.0, 0.0]]), (pad, 1))])
-        t_max = jnp.concatenate([t_max, jnp.zeros(pad)])
-    nb = o.shape[0] // BLOCK
-
-    def comp(x):
-        return x.reshape(nb, _SUB, 128)
-
-    rays = [comp(o[:, 0]), comp(o[:, 1]), comp(o[:, 2]),
-            comp(d[:, 0]), comp(d[:, 1]), comp(d[:, 2]),
-            comp(jnp.asarray(t_max, jnp.float32))]
-
-    node_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    ray_spec = pl.BlockSpec((1, _SUB, 128), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    if _USE_SMEM and not _USE_STREAM and kbvh.rows.shape[0] <= _SMEM_MAX_NODES:
-        smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-        header = kbvh.rows[:, :8].reshape(-1)
-        if _USE_ORDERED and _USE_DUAL and nb % 2 == 0 and nb >= 2:
-            ray2_spec = pl.BlockSpec((2, _SUB, 128), lambda i: (i, 0, 0),
-                                     memory_space=pltpu.VMEM)
-            t, tri = pl.pallas_call(
-                _kernel_smem_ordered2,
-                grid=(nb // 2,),
-                in_specs=[smem_spec, node_spec] + [ray2_spec] * 7,
-                out_specs=(ray2_spec, ray2_spec),
-                out_shape=(jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.float32),
-                           jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.int32)),
-                scratch_shapes=[pltpu.SMEM((2, _STACK_MAX), jnp.int32)],
-                interpret=interpret,
-            )(header, kbvh.rows, *rays)
-            return t.reshape(-1)[:n], tri.reshape(-1)[:n]
-        if _USE_INTERVAL:
-            t, tri = pl.pallas_call(
-                _kernel_smem_interval,
-                grid=(nb,),
-                in_specs=[smem_spec, node_spec] + [ray_spec] * 7,
-                out_specs=(ray_spec, ray_spec),
-                out_shape=(jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.float32),
-                           jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.int32)),
-                scratch_shapes=[pltpu.SMEM((_STACK_MAX,), jnp.int32),
-                                pltpu.SMEM((_STACK_MAX,), jnp.float32)],
-                interpret=interpret,
-            )(header, kbvh.rows, *rays)
-            return t.reshape(-1)[:n], tri.reshape(-1)[:n]
-        if _USE_ORDERED:
-            t, tri = pl.pallas_call(
-                _kernel_smem_ordered,
-                grid=(nb,),
-                in_specs=[smem_spec, node_spec] + [ray_spec] * 7,
-                out_specs=(ray_spec, ray_spec),
-                out_shape=(jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.float32),
-                           jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.int32)),
-                scratch_shapes=[pltpu.SMEM((_STACK_MAX,), jnp.int32)],
-                interpret=interpret,
-            )(header, kbvh.rows, *rays)
-            return t.reshape(-1)[:n], tri.reshape(-1)[:n]
-        t, tri = pl.pallas_call(
-            _kernel_smem,
-            grid=(nb,),
-            in_specs=[smem_spec, node_spec] + [ray_spec] * 7,
-            out_specs=(ray_spec, ray_spec),
-            out_shape=(jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.float32),
-                       jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.int32)),
-            interpret=interpret,
-        )(header, kbvh.rows, *rays)
-        return t.reshape(-1)[:n], tri.reshape(-1)[:n]
-
-    if _USE_STREAM or kbvh.rows.shape[0] > _VMEM_MAX_NODES:
-        # HBM-streaming kernel: rows stay in HBM (ANY), a VMEM window is
-        # DMA'd per visited chunk. Pad rows to a chunk multiple so every
-        # chunk DMA slice is in bounds.
-        C = _STREAM_CHUNK
-        m = kbvh.rows.shape[0]
-        pad_rows = (-m) % C
-        rows = kbvh.rows if pad_rows == 0 else \
-            jnp.pad(kbvh.rows, ((0, pad_rows), (0, 0)))
-        t, tri = pl.pallas_call(
-            _kernel_stream,
-            grid=(nb,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.ANY)] + [ray_spec] * 7,
-            out_specs=(ray_spec, ray_spec),
-            out_shape=(jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.float32),
-                       jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.int32)),
-            scratch_shapes=[pltpu.VMEM((C, 128), jnp.float32),
-                            pltpu.SemaphoreType.DMA],
-            interpret=interpret,
-        )(rows, *rays)
-        return t.reshape(-1)[:n], tri.reshape(-1)[:n]
-
+        o = jnp.pad(o, ((0, pad), (0, 0)))
+        d = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
+        t_max = jnp.pad(t_max, (0, pad))
+    n_pad = n + pad
+    lanes = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_max]
+    lane_spec = pl.BlockSpec((RAYS_PER_PROGRAM,), lambda i: (i,))
+    out_shape = (jax.ShapeDtypeStruct((n_pad,), jnp.float32),
+                 jax.ShapeDtypeStruct((n_pad,), jnp.int32))
     t, tri = pl.pallas_call(
         _kernel,
-        grid=(nb,),
-        in_specs=[node_spec] + [ray_spec] * 7,
-        out_specs=(ray_spec, ray_spec),
-        out_shape=(jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.float32),
-                   jax.ShapeDtypeStruct((nb, _SUB, 128), jnp.int32)),
+        grid=(n_pad // RAYS_PER_PROGRAM,),
+        in_specs=[pl.no_block_spec] + [lane_spec] * 7,
+        out_specs=(lane_spec, lane_spec),
+        out_shape=out_shape,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(kbvh.rows, *rays)
-
-    return t.reshape(-1)[:n], tri.reshape(-1)[:n]
-
-
-def barycentrics(bvh, o, d, t, tri):
-    """Recover (u, v, found) for kernel hits (matches render.bvh.traverse)."""
-    found = tri >= 0
-    safe = jnp.maximum(tri, 0)
-    a = bvh.v0[safe]
-    b = bvh.v1[safe]
-    c = bvh.v2[safe]
-    p = o + d * t[..., None]
-    ab = b - a
-    ac = c - a
-    ap = p - a
-    d00 = jnp.sum(ab * ab, axis=-1)
-    d01 = jnp.sum(ab * ac, axis=-1)
-    d11 = jnp.sum(ac * ac, axis=-1)
-    d20 = jnp.sum(ap * ab, axis=-1)
-    d21 = jnp.sum(ap * ac, axis=-1)
-    denom = jnp.maximum(d00 * d11 - d01 * d01, 1e-20)
-    u = (d11 * d20 - d01 * d21) / denom
-    v = (d00 * d21 - d01 * d20) / denom
-    return u, v, found
-
-
-def trace_batch_pallas(bvh, kbvh, o, d, active, interpret: bool = False):
-    """Drop-in replacement for render.rt._trace_batch using the kernel."""
-    t_max = jnp.where(active, BIG, jnp.float32(0.0))
-    t, tri = trace_rays_pallas(kbvh, o, d, t_max, interpret=interpret)
-    u, v, found = barycentrics(bvh, o, d, t, tri)
-    found = found & active & (t < BIG)
-    return jnp.where(found, t, BIG), jnp.where(found, tri, -1), u, v, found
+        name="bvh_closest_hit",
+    )(rows.reshape(-1), *lanes)
+    return t[:n], tri[:n]

@@ -1,13 +1,13 @@
 """Multi-chip scaling: shard the image plane (and agent batch) over a mesh.
 
 The reference is strictly single-GPU; its only scalability knobs are
-rtResolutionScale and active-chunk culling (SURVEY §5). The TPU engine's
-scaling axes (BASELINE.md stretch config "4 chips, 4 camera shards"):
+rtResolutionScale and active-chunk culling (SURVEY §5). This engine's
+scaling axes (BASELINE.md stretch config "4 devices, 4 camera shards"):
 
   * pixels — the RT/raster ray pipeline is embarrassingly parallel over the
     image plane; rays are sharded over the mesh's "rays" axis and geometry
     arrays are replicated. XLA inserts no collectives until the final
-    gather of the image (an all-gather over ICI at frame end).
+    gather of the image (an all-gather over NVLink at frame end).
   * entities — the physics substep vmaps over agents; sharding its batch
     axis over the same mesh scales crowd scenes (the demo's ~10 agents are
     kept replicated — sub-chip scale).
@@ -42,7 +42,7 @@ def shard_rays(mesh: Mesh, o, d, axis: str = "rays"):
 
 def shard_world_state(mesh: Mesh, state, axis: str = "rays"):
     """Place a WorldState pytree with its ENTITY axis sharded over the mesh
-    (round 4 — the entity scaling axis of SURVEY §5).
+    (the entity scaling axis of SURVEY §5).
 
     Every leaf whose leading dimension equals the entity count is sharded
     P(axis); all other leaves (palettes (C,B,4,4), scalars) replicate. The
@@ -72,11 +72,11 @@ def sharded_render(mesh: Mesh, geo, ibl, lights, width: int, height: int,
     Returns fn(transforms, palettes, inv_view_proj, cam_pos) -> (H,W,3).
     Geometry/BVH replicate to every device; the per-ray pipeline runs under
     ``jax.shard_map`` over the "rays" axis, so each device executes the FULL
-    per-shard pipeline — including the Pallas traversal `pallas_call` — on
+    per-shard pipeline — including the traversal kernel's custom call — on
     its local rays by construction (jit auto-partitioning would treat the
     custom call as unpartitionable and gather the whole batch onto one
     device). Zero cross-device traffic until the final image assembly
-    (an all-gather over ICI implied by the replicated output sharding).
+    (an all-gather implied by the replicated output sharding).
     """
     from ..render import rt as RT
     from ..render.scene_geometry import flatten_frame
@@ -101,15 +101,15 @@ def sharded_render(mesh: Mesh, geo, ibl, lights, width: int, height: int,
     @partial(jax.jit, out_shardings=rep)
     def render(transforms, palettes, ivp, cam_pos):
         fg = flatten_frame(geo, transforms, palettes)
-        # Padded tile-major lane order (round 4): each device's contiguous
-        # shard is a run of whole pixel tiles — packets stay coherent, and
-        # no permutation gathers exist (see rt.render_frame).
+        # Padded tile-major lane order: each device's contiguous shard is a
+        # run of whole pixel tiles, and no permutation gathers exist (see
+        # rt.render_frame).
         o, d, _, _ = generate_rays_tiled(ivp, cam_pos, width, height)
         n = o.shape[0]
         pad = (-n) % n_dev
         if pad:
-            # Park padded rays far outside the scene (dead packets exit at
-            # the root test) rather than at the origin.
+            # Park padded rays far outside the scene (they miss the root
+            # box) rather than at the origin.
             o = jnp.concatenate([o, jnp.full((pad, 3), 1.0e9, o.dtype)])
             d = jnp.concatenate([d, jnp.tile(jnp.array([[0.0, 1.0, 0.0]]), (pad, 1))])
         img = shard_fn(fg, cam_pos, o, d)

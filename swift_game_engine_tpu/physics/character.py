@@ -1,6 +1,6 @@
 """Kinematic character controller: move-and-slide with ground snap.
 
-TPU re-design of the reference's per-entity controller pipeline
+Array re-design of the reference's per-entity controller pipeline
 (reference: Game/Systems.swift:1402-1903 KinematicMoveStopSystem, plus the
 helper resolvers at :644-1399). All N agents advance in lockstep: the
 sequential per-entity loop becomes vmapped branchless stages, early ``break``s
@@ -88,7 +88,7 @@ class ControllerState(NamedTuple):
     manifold_normal: jnp.ndarray     # (N,4,3)
     manifold_frames: jnp.ndarray     # (N,) int32
     # Per-substep collision query stats, reset each pipeline step — the
-    # TPU form of CollisionQueryStats counted per query and reset per
+    # array form of CollisionQueryStats counted per query and reset per
     # refresh (reference: CollisionQuery.swift:280-318, Systems.swift:176).
     query_candidates: jnp.ndarray    # (N,) int32 prefilter-passing triangles
     query_casts: jnp.ndarray         # (N,) int32 casts + overlap tests issued

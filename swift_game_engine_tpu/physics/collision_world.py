@@ -2,7 +2,7 @@
 
 The reference keeps two incremental triangle sets (static / dynamic) with a
 median-split BVH refit per frame and per-query stack traversal
-(reference: Game/CollisionQuery.swift:320-470, 496-707). On TPU the
+(reference: Game/CollisionQuery.swift:320-470, 496-707). Here the
 broadphase tree is replaced by *batched brute force with an AABB prefilter*:
 queries evaluate (agents x triangles) pairs in one fused program — for
 scene-scale collision sets (hull-decimated meshes, hundreds to a few

@@ -6,7 +6,7 @@ point-triangle closest point, segment-segment closest points,
 Moller-Trumbore segment/ray-triangle intersection, and the capsule-core
 segment-triangle distance that drives the CCD sweep. Every function
 broadcasts over arbitrary leading batch dims so (agents x triangles) pairs
-evaluate as one fused elementwise program on the VPU.
+evaluate as one fused elementwise program.
 """
 
 from __future__ import annotations
@@ -141,10 +141,9 @@ def segment_triangle_intersect(a, b, v0, v1, v2):
 
 
 # ---------------------------------------------------------------------------
-# COLUMN-FORM interiors. Ops on (..., 3)-shaped arrays put the 3-wide minor
-# dim on the 128-lane axis — 125/128 lane waste on every elementwise op and
-# a relayout between most of them (the same lesson scene_geometry's cluster
-# setup learned: 25 ms -> <2 ms). The capsule-triangle distance is the
+# COLUMN-FORM interiors. Ops on (..., 3)-shaped arrays make the 3-wide axis
+# the minor dimension of every elementwise op, with relayouts between most
+# of them. The capsule-triangle distance is the
 # inner loop of every cast/overlap over (agents x candidate-tris) pairs, so
 # its interior runs on per-axis column arrays; the (.., 3) interface packs
 # only at the boundary.

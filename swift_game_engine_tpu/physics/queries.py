@@ -1,6 +1,6 @@
 """Batched collision queries: capsule CCD cast, overlap, raycast.
 
-TPU reformulation of the reference's per-query BVH traversal + scalar
+Data-parallel reformulation of the reference's per-query BVH traversal + scalar
 conservative advancement (reference: Game/CollisionQuery.swift:768-1394).
 
 Two cast implementations:
@@ -20,7 +20,7 @@ barycentric / edge parameter / vertex ownership checks — see
 the reference's <=256-iteration conservative-advancement loop
 (CollisionQuery.swift:1285-1394) into one data-parallel program — the same
 answer the reference's CA + 10-step bisection converges to, without the
-sequential dependency chain a TPU cannot hide.
+sequential dependency chain a batched device program cannot hide.
 
 ``capsule_cast_ca`` keeps the lockstep conservative-advancement form whose
 schedule mirrors the reference exactly (same advance rule, contact eps,
@@ -105,7 +105,7 @@ def gather_candidates(soup: TriangleSoup, center, half_height, radius,
     """Broadphase candidate lists: per-agent padded sub-soups.
 
     The reference bounds narrowphase work with a per-query BVH descent
-    (CollisionQuery.swift:496-707, leaf <= 4); the TPU analog is a batched
+    (CollisionQuery.swift:496-707, leaf <= 4); the batched analog is an
     AABB-vs-AABB prefilter gathered into FIXED-CAPACITY per-agent triangle
     lists, so every downstream cast/overlap runs over (N, cap) instead of
     (N, T).  Selection is nearest-first (squared centroid distance), so on
@@ -195,8 +195,7 @@ def _cast_select(soup, from_pos, delta, dir, toi, contact, iters,
 
     toi_masked = jnp.where(ok, toi, BIG)
     # Best-hit select WITHOUT argmin+indexing: under the per-agent vmap
-    # those lower to batched gathers (measured as a top cost in the crowd
-    # substep). A first-minimum one-hot + masked reductions is pure
+    # those lower to batched gathers. A first-minimum one-hot + masked reductions is pure
     # elementwise/reduce work; falls back to triangle 0 exactly like
     # argmin over an all-BIG vector.
     best_toi = jnp.min(toi_masked, axis=0)

@@ -1,6 +1,6 @@
 """Agent-agent separation after move-and-slide.
 
-TPU reformulation of the reference's XZ hash-grid Gauss-Seidel pass
+Data-parallel reformulation of the reference's XZ hash-grid Gauss-Seidel pass
 (reference: Game/Systems.swift:1906-2210) with the same per-pair
 position/impulse math (inverse-mass-weighted XZ push + approach-velocity
 cancellation), Jacobi-accumulated per iteration instead of sequential
@@ -9,7 +9,7 @@ in-place pair updates.
 Candidate generation scales with N:
   * small N (<= _GRID_MIN_N): dense (N x N) masked matrix — cheaper than
     any sort at demo scale.
-  * large N: the reference's XZ grid, TPU-shaped — agents sort by integer
+  * large N: the reference's XZ grid, array-shaped — agents sort by integer
     cell key (cell = 2*maxR + margin, Systems.swift:2130-2135), and each
     agent gathers a fixed window of _CELL_CAP sorted entries from each of
     its 9 neighbor cells via searchsorted. O(N * 9 * CAP) pair terms, all
@@ -106,10 +106,8 @@ def _grid_candidate_rows(position, velocity, params, inv_w, solid,
     neighbor cell found via searchsorted. All shapes static.
 
     The per-agent attributes ride in ONE (N, 12) row table gathered once
-    into sorted order and once per candidate window: row gathers are fast
-    on TPU, while the previous per-attribute j_idx gathers (8 scalar 1-D
-    gathers of (N, 9*CAP)) lowered to per-element gathers and dominated
-    the crowd substep's separation cost.
+    into sorted order and once per candidate window: one row gather
+    instead of 8 scalar 1-D gathers of (N, 9*CAP).
 
     Row layout: [px, py, pz, vx, vz, radius, half_height, skin, inv_w,
     solid, id, pad]."""
@@ -142,8 +140,8 @@ def _grid_candidate_rows(position, velocity, params, inv_w, solid,
     # searchsorted-left == count of keys below the query. The explicit
     # comparison-count is pure vector compare+reduce (N*9*N lanes — ~9.4M
     # at 1024 agents), while jnp.searchsorted lowers to a binary-search
-    # loop of per-element gathers (the round-4 crowd residual, VERDICT r4
-    # next #4). Above the quadratic cutoff the gather loop wins again.
+    # loop of per-element gathers. Above the quadratic cutoff the gather
+    # loop wins again.
     if n <= 4096:
         start = jnp.sum(key_sorted[None, None, :] < nk[:, :, None],
                         axis=-1).astype(jnp.int32)                # (N, 9)

@@ -2,7 +2,7 @@
 
 The reference counts broadphase candidates, sweep tests and
 conservative-advancement iterations per query, reset each substep
-(Systems.swift:176). The TPU engine's queries are lockstep, so the analogous
+(Systems.swift:176). The engine's queries are lockstep, so the analogous
 numbers are exact array reductions; this probe runs the standard query set
 for a set of agents outside the hot path (the per-substep pipeline stays a
 pure state -> state function).

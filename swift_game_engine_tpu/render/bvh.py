@@ -2,7 +2,7 @@
 
 The reference leans on Metal's opaque acceleration-structure API (BLAS build
 + refit, TLAS over instances — reference: Game/RTAccelerationBuilder.swift:10-247).
-On TPU we own the structure:
+Here the engine owns the structure:
 
   * **Build (host, once per scene):** median-split over triangle AABB
     centroids with a largest-axis pivot and a sorted-split fallback, leaf
@@ -10,14 +10,14 @@ On TPU we own the structure:
     (Game/CollisionQuery.swift:496-707), reused here for rendering. Nodes
     are emitted in *preorder*, so during traversal "descend" is `node + 1`
     and a precomputed `skip` link jumps over a rejected subtree: traversal
-    needs no stack and every ray runs the identical loop — ideal lockstep
-    shape for the VPU.
+    needs no stack and every ray runs the identical loop.
   * **Refit (device, per frame):** triangle AABBs from the (skinned /
     instance-transformed) world vertices, then level-ordered
     internal-node merges — pure gathers + mins, runs inside the frame jit
     (mirrors the reference's dynamic BLAS refit).
-  * **Traversal (device):** fori/while loop over `(node, skip)` pointers,
-    vectorized over rays; leaves test their <= 4 triangle slots masked.
+  * **Traversal (device):** a while loop over `(node, skip)` pointers per
+    ray (``traverse``, vmapped: the plain reference), or the GPU kernel in
+    ``ops.rt_kernel`` reading the packed row layout (``pack_rows``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,17 @@ from ..physics.primitives import ray_triangle
 
 LEAF_SIZE = 4
 BIG = np.float32(3.0e38)
+
+# Packed row layout (``pack_rows``), one row of ROW f32 per node:
+#   [0:3] bmin   [3:6] bmax   [6] skip link   [7] leaf flag
+#   [ROW_TRIS + 9j : ROW_TRIS + 9j + 9]  triangle j as (a, b-a, c-a)
+#   [ROW_IDS + j]  triangle j's original id (-1 if empty)
+# LEAF_SLOTS = 12 fills a 512-byte row exactly (8 + 9*12 + 12 = 128); the
+# render tree is built with this leaf size.
+LEAF_SLOTS = 12
+ROW_TRIS = 8
+ROW_IDS = ROW_TRIS + 9 * LEAF_SLOTS
+ROW = ROW_IDS + LEAF_SLOTS
 
 
 class BVHTopology(NamedTuple):
@@ -211,7 +222,7 @@ def build_bvh_morton(tri_min: np.ndarray, tri_max: np.ndarray,
             continue
         if count <= 2 * leaf_size:
             # Terminal split: emit one full leaf (keeps average leaf
-            # occupancy high — VMEM row budget scales with node count).
+            # occupancy high — tree bytes scale with node count).
             n_left = min(leaf_size, count - 1)
         else:
             n_left = radix_split(start, count)
@@ -259,8 +270,8 @@ def build_bvh_morton(tri_min: np.ndarray, tri_max: np.ndarray,
 class BVHArrays(NamedTuple):
     """Device-side refit output: node bounds + leaf triangle data.
 
-    ``rows`` is the packed row-per-node layout consumed by the Pallas
-    traversal kernel (ops.rt_kernel); see that module for the lane map.
+    ``rows`` is the packed row-per-node layout (``pack_rows``) the GPU
+    traversal kernel (ops.rt_kernel) reads.
     """
 
     bmin: jnp.ndarray      # (M,3)
@@ -271,23 +282,35 @@ class BVHArrays(NamedTuple):
     v0: jnp.ndarray        # (T,3) world-space tri verts (original order)
     v1: jnp.ndarray
     v2: jnp.ndarray
-    rows: jnp.ndarray      # (M_pad, 128) kernel layout
+    rows: jnp.ndarray      # (M, ROW) kernel layout
 
 
-def refit(topo: BVHTopology, v0, v1, v2, translucent=None) -> BVHArrays:
+def pack_rows(bmin, bmax, skip, is_leaf, slot_tri, v0, v1, v2):
+    """Node arrays -> (M, ROW) packed rows (see the layout above)."""
+    m, k = slot_tri.shape
+    assert k <= LEAF_SLOTS, f"leaf width {k} exceeds row capacity {LEAF_SLOTS}"
+    if k < LEAF_SLOTS:
+        slot_tri = jnp.concatenate(
+            [slot_tri, jnp.full((m, LEAF_SLOTS - k), -1, slot_tri.dtype)], 1)
+    safe = jnp.maximum(slot_tri, 0)
+    a = v0[safe]                                        # (M,LEAF_SLOTS,3)
+    tris = jnp.concatenate([a, v1[safe] - a, v2[safe] - a], axis=-1)
+    return jnp.concatenate([
+        bmin, bmax,
+        skip.astype(jnp.float32)[:, None],
+        is_leaf.astype(jnp.float32)[:, None],
+        tris.reshape(m, 9 * LEAF_SLOTS),
+        slot_tri.astype(jnp.float32),
+    ], axis=-1)
+
+
+def refit(topo: BVHTopology, v0, v1, v2) -> BVHArrays:
     """Recompute all node AABBs from current world-space triangles (jit-safe).
 
     Leaf bounds from their <= 4 triangles; internal bounds by level-ordered
     child merges (mirrors RTAccelerationBuilder's refit +
     CollisionQuery.swift:528-575's deepest-first parent pass).
     """
-    # Static depth guard for the ordered traversal kernels' SMEM stack: at
-    # most one push per interior level, so tree depth bounds stack use.
-    from ..ops.rt_kernel import _STACK_MAX
-    assert len(topo.levels) < _STACK_MAX, (
-        f"BVH depth {len(topo.levels)} exceeds traversal stack "
-        f"({_STACK_MAX}); rebuild with a larger leaf or a balanced split")
-
     t_order = jnp.asarray(topo.tri_order)
     tri_min = jnp.minimum(jnp.minimum(v0, v1), v2)[t_order]   # ordered space
     tri_max = jnp.maximum(jnp.maximum(v0, v1), v2)[t_order]
@@ -312,20 +335,20 @@ def refit(topo: BVHTopology, v0, v1, v2, translucent=None) -> BVHArrays:
 
     # slot_tri in ORIGINAL triangle ids for attribute lookup.
     slot_tri = jnp.where(slot_valid, t_order[safe], -1)
-    out = BVHArrays(bmin=bmin, bmax=bmax, skip=jnp.asarray(topo.skip),
-                    is_leaf=jnp.asarray(topo.tri_count > 0),
-                    slot_tri=slot_tri, v0=v0, v1=v1, v2=v2,
-                    rows=jnp.zeros((0, 128), jnp.float32))
-    from ..ops.rt_kernel import pack_bvh
-    return out._replace(rows=pack_bvh(out, translucent=translucent).rows)
+    skip = jnp.asarray(topo.skip)
+    is_leaf = jnp.asarray(topo.tri_count > 0)
+    return BVHArrays(bmin=bmin, bmax=bmax, skip=skip, is_leaf=is_leaf,
+                     slot_tri=slot_tri, v0=v0, v1=v1, v2=v2,
+                     rows=pack_rows(bmin, bmax, skip, is_leaf, slot_tri,
+                                    v0, v1, v2))
 
 
-def traverse(bvh: BVHArrays, origin, direction, t_max, max_steps: int = None,
-             any_hit: bool = False):
-    """Nearest-hit (or any-hit) traversal for one ray. vmap over rays.
+def traverse(bvh: BVHArrays, origin, direction, t_max, max_steps: int = None):
+    """Nearest-hit traversal for one ray. vmap over rays.
 
     Returns (t, tri_index, bary_u, bary_v, hit). ``tri_index`` is in original
-    triangle id space. ``max_steps`` defaults to a full-walk bound (every
+    triangle id space. A ray with ``t_max <= 0`` is inactive and exits at
+    once. ``max_steps`` defaults to a full-walk bound (every
     node visited once) — a fixed small cap silently truncates traversal on
     larger trees and returns farther hits (caught by the raster-primary
     parity test at 512).
@@ -337,10 +360,7 @@ def traverse(bvh: BVHArrays, origin, direction, t_max, max_steps: int = None,
 
     def cond(c):
         node, t_best, _, _, tri_best, step = c
-        alive = (node >= 0) & (step < max_steps)
-        if any_hit:
-            return alive & (tri_best == -1)
-        return alive
+        return (node >= 0) & (step < max_steps)
 
     def body(c):
         node, t_best, u_best, v_best, tri_best, step = c
@@ -369,7 +389,9 @@ def traverse(bvh: BVHArrays, origin, direction, t_max, max_steps: int = None,
         node = jnp.where(descend, node + 1, bvh.skip[node])
         return node, t_best, u_best, v_best, tri_best, step + 1
 
-    init = (jnp.int32(0), jnp.asarray(t_max, jnp.float32), jnp.float32(0.0),
+    t_max = jnp.asarray(t_max, jnp.float32)
+    init = (jnp.where(t_max > 0, 0, -1).astype(jnp.int32), t_max,
+            jnp.float32(0.0),
             jnp.float32(0.0), jnp.int32(-1), jnp.int32(0))
     node, t_best, _, _, tri_best, _ = jax.lax.while_loop(cond, body, init)
 

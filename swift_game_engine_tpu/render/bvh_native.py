@@ -1,7 +1,8 @@
 """ctypes binding for the native C++ binned-SAH BVH builder.
 
-Builds native/libsge_native.so on first use (g++ is in the image; pybind11 is
-not, so the binding is plain ctypes). Produces the same BVHTopology contract
+Builds native/libsge_native.so on first use with native/build.sh (plain
+ctypes binding; the library is portable x86-64, never tuned to the build
+host's CPU). Produces the same BVHTopology contract
 as the Python builders in render.bvh with SAH-quality splits — the highest
 traversal quality / fastest host build combination.
 """
@@ -21,14 +22,28 @@ _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "..", "..", "native")
 
 
+class NativeBuildError(RuntimeError):
+    """The native library could not be built or loaded."""
+
+
 def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
     so = os.path.join(_NATIVE_DIR, "libsge_native.so")
-    if not os.path.exists(so):
-        subprocess.run(["sh", os.path.join(_NATIVE_DIR, "build.sh")], check=True)
-    lib = ctypes.CDLL(so)
+    src = os.path.join(_NATIVE_DIR, "bvh_builder.cpp")
+    # Rebuild when the library is missing or older than its source, so a
+    # library left over from another machine or revision is never loaded.
+    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+        try:
+            subprocess.run(["sh", os.path.join(_NATIVE_DIR, "build.sh")],
+                           check=True, capture_output=True, text=True)
+        except (OSError, subprocess.CalledProcessError) as e:
+            raise NativeBuildError(f"native/build.sh failed: {e}") from e
+    try:
+        lib = ctypes.CDLL(so)
+    except OSError as e:
+        raise NativeBuildError(f"cannot load {so}: {e}") from e
     lib.build_bvh_sah.restype = ctypes.c_int32
     lib.build_bvh_sah.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
@@ -40,14 +55,6 @@ def _load():
     ]
     _LIB = lib
     return lib
-
-
-def available() -> bool:
-    try:
-        _load()
-        return True
-    except Exception:
-        return False
 
 
 def build_bvh_sah(tri_min: np.ndarray, tri_max: np.ndarray,

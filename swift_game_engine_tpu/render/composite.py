@@ -118,11 +118,13 @@ class FPSOverlay:
         total = len(digits) * dw + max(0, len(digits) - 1) * self.SPACING
         x = int(max(self.MARGIN, w - self.MARGIN - total))
         y = self.MARGIN  # distance from top edge
-        from PIL import Image
         out = frame_u8.copy()
+        # nearest-neighbour upscale (pixel-centre sampling)
+        rows = ((np.arange(dh) + 0.5) * self.cell_h / dh).astype(np.int64)
+        cols = ((np.arange(dw) + 0.5) * self.cell_w / dw).astype(np.int64)
         for d in digits:
             cell = self.atlas[:, d * self.cell_w:(d + 1) * self.cell_w]
-            img = np.asarray(Image.fromarray(cell, "RGBA").resize((dw, dh), Image.NEAREST))
+            img = cell[rows][:, cols]
             y0, y1 = y, min(y + dh, h)
             x0, x1 = x, min(x + dw, w)
             if y1 > y0 and x1 > x0:

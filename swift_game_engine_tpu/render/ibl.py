@@ -4,7 +4,7 @@ reference: Game/IBLResources.swift:11-175 (CPU-precomputed 128^3 mipped env
 cube + 128^2 GGX BRDF LUT via 256-sample Hammersley integration) and
 Game/RayTracingRenderer.swift:190-198 (hemisphere SH L0/L1 ambient).
 
-TPU design notes: the reference's env cube is *generated from an analytic
+Design notes: the reference's env cube is *generated from an analytic
 hemisphere-gradient + roughness-widened-sun function* and then sampled with
 trilinear mips; here `sample_env` evaluates that same analytic function
 directly at the roughness-interpolated mip exponent — the continuous version
@@ -127,8 +127,8 @@ def sample_brdf_lut(lut, nov, roughness):
     fx = (x - x0)[..., None]
     fy = (y - y0)[..., None]
     # Flat-index ROW gathers: 2-D integer indexing (lut[y0, x0]) lowers to
-    # a per-element gather costing ~3.2 ms per tap over an image of lanes;
-    # single-index row gathers of the flattened table are ~100x faster.
+    # a per-element gather; single-index row gathers of the flattened table
+    # move whole rows.
     flat = lut.reshape(-1, lut.shape[-1])
     base = y0 * size + x0
     v00 = flat[base]

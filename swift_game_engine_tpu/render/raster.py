@@ -5,14 +5,11 @@ normal-mapped hemispherical wrap diffuse, emissive, occlusion, unlit branch,
 per-material ACES tone map + dither — reference:
 Game/ShadersRaster.metalinc:38-101, Game/RenderPasses.swift:10-77).
 
-Visibility comes from the binned Pallas tile rasterizer
-(render.tile_raster): true depth-tested rasterization, no BVH dependence —
-several times cheaper than a primary trace. Transparency layers use depth
-peeling (re-rasterize strictly behind the previous layer), reproducing the
-front-to-back alpha accumulation the reference gets from fixed-function
-blending (reference: Game/PipelineBuilder.swift:37-45). Shading is the
-raster fragment model, unchanged. SGE_RASTER_VIS=trace falls back to
-primary-ray visibility (the round-2 output-equivalent design).
+Visibility comes from primary rays through the render BVH: the nearest
+fragment per pixel, then up to ``max_layers`` continuation hits behind it,
+reproducing the front-to-back alpha accumulation the reference gets from
+fixed-function blending (reference: Game/PipelineBuilder.swift:37-45).
+Shading is the raster fragment model, unchanged.
 """
 
 from __future__ import annotations
@@ -27,7 +24,7 @@ from .scene_geometry import texture_usage
 from .scene_geometry import SceneGeometry, FrameGeometry
 from .shading import tone_map_aces, hash12, apply_normal_map
 from .textures import sample_bilinear
-from .camera import generate_rays
+from .camera import generate_rays_tiled, untile_image
 
 # Fixed raster light direction (ShadersRaster.metalinc:89).
 RASTER_L = (np.array([-0.2, 1.0, -0.4]) / np.linalg.norm([-0.2, 1.0, -0.4])).astype(np.float32)
@@ -82,93 +79,13 @@ def _raster_shade(geo: SceneGeometry, fg: FrameGeometry, o, d, t, tri, u, v,
     return color, alpha, hit_pos
 
 
-import os
-
-_RASTER_VIS = os.environ.get("SGE_RASTER_VIS", "tile")  # tile | trace
-# Visibility binning: "clusters" (front-to-back cluster walk with occlusion
-# early-exit, round-3 default) or "lists" (exact per-tile candidate lists;
-# setup is nonzero/gather-bound — kept for comparison).
-_RASTER_MODE = os.environ.get("SGE_RASTER_MODE", "clusters")
-
-
 def render_frame_raster(geo: SceneGeometry, fg: FrameGeometry, inv_view_proj,
                         cam_pos, width: int, height: int, max_layers: int = 2,
-                        background=BG_COLOR, view_proj=None):
+                        background=BG_COLOR):
     """Raster-path frame -> (H, W, 3)."""
-    if _RASTER_VIS == "tile":
-        return _render_tile(geo, fg, inv_view_proj, cam_pos, width, height,
-                            max_layers, background, view_proj)
-    return _render_trace(geo, fg, inv_view_proj, cam_pos, width, height,
-                         max_layers, background)
-
-
-def _render_tile(geo, fg, inv_view_proj, cam_pos, width, height, max_layers,
-                 background, view_proj):
-    from .tile_raster import rasterize, BIG
     usage = texture_usage(geo)
-    if view_proj is None:
-        # analytic forward matrix preferred (engine passes it); numeric
-        # inverse is the library-level fallback
-        view_proj = jnp.linalg.inv(jnp.asarray(inv_view_proj, jnp.float32))
-    ray_o, ray_d = generate_rays(inv_view_proj, cam_pos, width, height)
-    p = ray_o.shape[0]
-    interpret = jax.default_backend() != "tpu"
-    v0, v1, v2 = fg.bvh.v0, fg.bvh.v1, fg.bvh.v2
-
-    accum = jnp.zeros((p, 3))
-    accum_alpha = jnp.zeros(p)
-    live = jnp.ones(p, bool)
-    if _RASTER_MODE == "clusters":
-        # One cluster-raster pass yields every layer's hit records (in-kernel
-        # K-nearest insertion; shared setup and early exit).
-        from .rt import _opaque_tris
-        from .tile_raster import rasterize_clusters
-        peels = rasterize_clusters(v0, v1, v2, view_proj, cam_pos, width,
-                                   height, layers=max_layers,
-                                   interpret=interpret,
-                                   opaque=_opaque_tris(geo))
-        for hits in peels:
-            found = hits.found & live & (accum_alpha < 0.99)
-            color, alpha, _ = _raster_shade(geo, fg, ray_o, ray_d, hits.t,
-                                            hits.tri, hits.u, hits.v, found,
-                                            usage)
-            contrib = jnp.where(found, alpha * (1.0 - accum_alpha), 0.0)
-            accum = accum + color * contrib[..., None]
-            accum_alpha = accum_alpha + contrib
-            live = found
-        out = accum + jnp.asarray(background) * (1.0 - accum_alpha)[..., None]
-        return out.reshape(height, width, 3)
-    prev_w = None
-    # Static peel loop: each layer rasterizes the nearest fragment strictly
-    # behind the previous layer's depth (misses carry BIG -> stay misses).
-    for _ in range(max_layers):
-        hits = rasterize(v0, v1, v2, view_proj, cam_pos, width, height,
-                         prev_w=prev_w, interpret=interpret)
-        found = hits.found & live & (accum_alpha < 0.99)
-        color, alpha, _ = _raster_shade(geo, fg, ray_o, ray_d, hits.t,
-                                        hits.tri, hits.u, hits.v, found,
-                                        usage)
-        contrib = jnp.where(found, alpha * (1.0 - accum_alpha), 0.0)
-        accum = accum + color * contrib[..., None]
-        accum_alpha = accum_alpha + contrib
-        live = found
-        # small relative margin so the divided-then-compared depth of the
-        # just-shaded fragment can't re-win the next peel
-        prev_w = jnp.where(found, hits.w_depth * 1.000001, BIG)
-
-    out = accum + jnp.asarray(background) * (1.0 - accum_alpha)[..., None]
-    return out.reshape(height, width, 3)
-
-
-def _render_trace(geo, fg, inv_view_proj, cam_pos, width, height, max_layers,
-                  background):
-    """Round-2 output-equivalent fallback: primary-ray visibility."""
-    from .camera import tile_permutation
-    usage = texture_usage(geo)
-    ray_o, ray_d = generate_rays(inv_view_proj, cam_pos, width, height)
-    perm, inv_perm = tile_permutation(width, height)
-    ray_o = ray_o[jnp.asarray(perm)]
-    ray_d = ray_d[jnp.asarray(perm)]
+    ray_o, ray_d, _, _ = generate_rays_tiled(inv_view_proj, cam_pos, width,
+                                             height)
     p = ray_o.shape[0]
 
     def layer_body(_, carry):
@@ -186,4 +103,4 @@ def _render_trace(geo, fg, inv_view_proj, cam_pos, width, height, max_layers,
     init = (ray_o, jnp.ones(p, bool), jnp.zeros((p, 3)), jnp.zeros(p))
     _, _, accum, accum_alpha = jax.lax.fori_loop(0, max_layers, layer_body, init)
     out = accum + jnp.asarray(background) * (1.0 - accum_alpha)[..., None]
-    return out[jnp.asarray(inv_perm)].reshape(height, width, 3)
+    return untile_image(out, width, height)

@@ -4,7 +4,7 @@ The reference packs RenderItems into big static/dynamic SoA buffers with
 per-instance info + a texture slot registry, GPU-skins the dynamic verts and
 (re)builds Metal acceleration structures (reference:
 Game/RTGeometryCache.swift:54-577, Game/RTAccelerationBuilder.swift:10-247,
-Game/RenderItem.swift:10-28). On TPU:
+Game/RenderItem.swift:10-28). Here:
 
   * Geometry is packed ONCE at scene build: one vertex pool
     [static-instanced verts | skinned verts], one index pool, per-triangle
@@ -85,9 +85,6 @@ def texture_usage(geo: "SceneGeometry") -> TextureUsage:
     Must be called where ``geo`` holds concrete arrays (closure constants
     at trace time) — the result is a static Python value.
     """
-    import os
-    if os.environ.get("SGE_NO_TEX") == "1":   # profiling: no texture taps
-        return TextureUsage(False, False, False, False, False, False)
     # Single-slot memo keyed on object identity (verified with `is` — a
     # bare id() key would alias recycled addresses). One slot bounds the
     # cache: long sessions that rebuild scenes don't pin every materials
@@ -318,17 +315,15 @@ class RenderGeometryBuilder:
         t2 = pos0[tri[:, 2]]
         tmin = np.minimum(np.minimum(t0, t1), t2)
         tmax = np.maximum(np.maximum(t0, t1), t2)
-        # Native binned-SAH build when available (best traversal quality);
-        # Python Morton/radix build otherwise.
+        # Native binned-SAH build (best traversal quality); the Python
+        # Morton/radix build where no C++ compiler is at hand.
+        from .bvh_native import NativeBuildError, build_bvh_sah
         try:
-            from .bvh_native import build_bvh_sah
-            from ..ops.rt_kernel import SLOT_N
-            topo = build_bvh_sah(tmin, tmax, leaf_size=SLOT_N)
-        except Exception as e:  # pragma: no cover - toolchain dependent
+            topo = build_bvh_sah(tmin, tmax, leaf_size=B.LEAF_SLOTS)
+        except NativeBuildError as e:
             print(f"scene_geometry: native BVH builder unavailable ({e}); "
                   "using Morton build")
-            from ..ops.rt_kernel import SLOT_N
-            topo = B.build_bvh_morton(tmin, tmax, leaf_size=SLOT_N)
+            topo = B.build_bvh_morton(tmin, tmax, leaf_size=B.LEAF_SLOTS)
 
         # Per-triangle translucency (static): material alpha factor < 1, or a
         # bound base texture whose min alpha < 1.
@@ -417,8 +412,7 @@ def flatten_frame(geo: SceneGeometry, instance_transforms, palettes) -> FrameGeo
     v0 = pos_w[geo.tri[:, 0]]
     v1 = pos_w[geo.tri[:, 1]]
     v2 = pos_w[geo.tri[:, 2]]
-    bvh_arrays = B.refit(geo.topo, v0, v1, v2,
-                         translucent=geo.tri_translucent)
+    bvh_arrays = B.refit(geo.topo, v0, v1, v2)
     fn = jnp.cross(v1 - v0, v2 - v0)
     fn = fn / jnp.maximum(jnp.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
     return FrameGeometry(pos=pos_w, nrm=nrm_w, tan=tan_w, bvh=bvh_arrays,

@@ -2,7 +2,7 @@
 
 The reference binds up to 32 textures through a bindless slot array
 (reference: Game/RTGeometryCache.swift:245-258, Game/RayTracing.metalinc:9).
-On TPU, per-material texture objects become one (X, S, S, 4) float32 array:
+Here, per-material texture objects become one (X, S, S, 4) float32 array:
 every texture is resampled to S x S at load (sRGB decoded to linear, matching
 Metal's sRGB sample semantics) and shaders gather bilinear taps by texture id.
 Id -1 means "no texture" and samplers return the neutral value.
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ..assets.procedural_textures import Texture
@@ -43,13 +44,13 @@ class TextureBankBuilder:
         """Returns texture id, or -1 for None."""
         if tex is None:
             return -1
-        from PIL import Image
-        px = tex.pixels
-        if px.shape[0] != self.size or px.shape[1] != self.size:
-            img = Image.fromarray(px, "RGBA").resize((self.size, self.size),
-                                                     Image.BILINEAR)
-            px = np.asarray(img, np.uint8)
-        f = px.astype(np.float32) / 255.0
+        f = tex.pixels.astype(np.float32) / 255.0
+        if f.shape[0] != self.size or f.shape[1] != self.size:
+            # antialiased bilinear resample on the host
+            f = np.asarray(jax.image.resize(
+                f, (self.size, self.size, f.shape[2]), "bilinear",
+                antialias=True))
+            f = np.clip(np.round(f * 255.0), 0, 255) / 255.0
         if tex.srgb:
             f = np.concatenate([srgb_to_linear(f[..., :3]), f[..., 3:]], axis=-1)
         self._textures.append(f)

@@ -1,7 +1,7 @@
 """Input system: gamepad-style intents + third-person chase camera.
 
 reference: Game/InputSystem.swift:11-228. The reference reads a GameController
-pad; headless TPU runs take the same axes/buttons from an `InputFrame`
+pad; headless runs take the same axes/buttons from an `InputFrame`
 (scripted, replayed, or wired to any host input source):
 
   * deadzone 0.12 on each stick

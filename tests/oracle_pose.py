@@ -1,7 +1,7 @@
 """Independent NumPy oracle of the reference pose-stack semantics.
 
 Scalar, loop-based, written directly from the behavior of
-Game/ProceduralPoseSystem.swift — used only to validate the vectorized TPU
+Game/ProceduralPoseSystem.swift — used only to validate the vectorized
 implementation in swift_game_engine_tpu.anim.pose.
 """
 

@@ -7,12 +7,19 @@ from swift_game_engine_tpu.assets import procedural_meshes as pm
 from swift_game_engine_tpu.assets import procedural_textures as pt
 from swift_game_engine_tpu.assets.materials import load_materials, Material
 from swift_game_engine_tpu.assets.static_mesh import load_static_mesh
-from swift_game_engine_tpu.assets.skeleton import load_skeleton
 from swift_game_engine_tpu.assets.mesh_api import compute_tangents
+from swift_game_engine_tpu.assets import player_rig
 
 pytestmark = pytest.mark.fast
 
-REF = "/root/reference/Game"
+
+def _reference(name):
+    """The reference project's own asset file, or skip (not in this repo)."""
+    path = player_rig.reference_file(name)
+    if path is None:
+        pytest.skip(f"reference asset {name} not available "
+                    f"(set ${player_rig.REFERENCE_DIR_ENV})")
+    return path
 
 
 def closed_surface_checks(mesh, allow_degenerate_frac=0.0):
@@ -86,7 +93,7 @@ def test_humanoid_skinned():
 
 
 def test_skeleton_capsules():
-    sk = load_skeleton(f"{REF}/YBot.skeleton.json")
+    sk = player_rig.load_player_rig()[0]
     m = pm.skeleton_capsules(sk, radius=0.03)
     assert m.vertex_count > 1000
     np.testing.assert_allclose(m.weights.sum(axis=1), 1.0, atol=1e-4)
@@ -146,7 +153,7 @@ def test_normal_maps():
 # --- materials + static mesh ---
 
 def test_load_materials_ybot():
-    mats = load_materials(f"{REF}/YBot.materials.json")
+    mats = load_materials(_reference("YBot.materials.json"))
     assert "Alpha_Body_MAT" in mats
     m = mats["Alpha_Body_MAT"]
     assert m.metallic_factor == 0.0
@@ -157,7 +164,7 @@ def test_load_materials_ybot():
 
 
 def test_load_materials_with_textures():
-    mats = load_materials(f"{REF}/ornate-mirror.materials.json")
+    mats = load_materials(_reference("ornate-mirror.materials.json"))
     assert len(mats) >= 1
     m = next(iter(mats.values()))
     # ornate mirror references diffuse/normal/ao textures next to the json
@@ -167,7 +174,7 @@ def test_load_materials_with_textures():
 
 
 def test_load_static_mesh():
-    asset = load_static_mesh(f"{REF}/ornate_mirror.static.json")
+    asset = load_static_mesh(_reference("ornate_mirror.static.json"))
     assert len(asset.parts) == 1
     part = asset.parts[0]
     assert part.mesh.triangle_count == 42738 // 3

@@ -27,6 +27,8 @@ def test_pipelined_frames_match(scene):
                                     with_overlay=False))
                for _ in range(72)]
         frames[depth] = out
+        # the frame program's health counter: no NaN/inf in the float image
+        assert eng.nonfinite_values == 0
 
     # depth-3 presents frame k at call k+2 (2 warm-up frames); the idle
     # animation keeps the scene evolving, so compare shifted frames in the
@@ -39,10 +41,8 @@ def test_pipelined_frames_match(scene):
 
 
 def test_raster_pbr_path_matches_rt_no_bounce(scene):
-    """path="raster_pbr" (round 4) = the RT shading pipeline on raster
-    visibility records with bounce passes off. With bounces disabled in
-    BOTH engines the two paths share every shading term, so the frames
-    must be identical up to raster/trace sub-pixel edge disagreements."""
+    """path="raster_pbr" = the RT shading pipeline with bounce passes off:
+    it renders, and it differs from the wrap-diffuse raster model."""
     W, H = 48, 27
     eng_pbr = Engine(scene, width=W, height=H, path="raster_pbr",
                      max_layers=2, shadow_layers=1)

@@ -18,11 +18,38 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import fit_motion as FM  # noqa: E402
 
 from swift_game_engine_tpu.assets.motion_profile import (  # noqa: E402
-
     load_motion_profile, evaluate_fourier)
+from swift_game_engine_tpu.assets import player_rig  # noqa: E402
 
 TIME_SCALE = 46186158000.0
-REF_SKEL = "/root/reference/Game/YBot.skeleton.json"
+
+
+def _reference(name):
+    """The reference project's own file, or skip (not in this repo)."""
+    path = player_rig.reference_file(name)
+    if path is None:
+        pytest.skip(f"reference asset {name} not available "
+                    f"(set ${player_rig.REFERENCE_DIR_ENV})")
+    return path
+
+
+def _skeleton_json(tmp_path):
+    """The player rig (reference skeleton when available, else the one
+    derived from assets/YBot.skinned.json) as a *.skeleton.json file."""
+    ref = player_rig.reference_file("YBot.skeleton.json")
+    if ref is not None:
+        return ref
+    sk = player_rig.skeleton_from_skinned()
+    path = tmp_path / "YBot.skeleton.json"
+    path.write_text(json.dumps({
+        "version": 1, "name": "YBot", "unitScale": sk.unit_scale,
+        "rigProfile": {"name": "mixamo"},
+        "root": {"rule": "zero_root",
+                 "rotationFixDegrees": list(player_rig.YBOT_ROOT_FIX_DEGREES)},
+        "names": list(sk.names), "parent": sk.parent.tolist(),
+        "translations": sk.raw_rest_translation.tolist(),
+        "preRotationDegrees": sk.pre_rotation_degrees.tolist()}))
+    return str(path)
 
 
 pytestmark = pytest.mark.fast
@@ -109,7 +136,7 @@ def test_roundtrip_simple_sine(tmp_path):
 def test_walk_cycle_phase_detection(tmp_path):
     """Two gait cycles in one clip: contact cascade should find the
     half-duration period and the stride fix should restore full duration."""
-    skel = json.load(open(REF_SKEL))
+    skel_path = _skeleton_json(tmp_path)
     dur = 2.0
     gait = 1.0  # one gait cycle per second
 
@@ -131,7 +158,7 @@ def test_walk_cycle_phase_detection(tmp_path):
     fbx.write_text(make_ascii_fbx(bones, dur, n_keys=121))
     out = tmp_path / "walk.motionProfile.json"
     FM.fit(str(fbx), str(out), clip_name="Walk", fps=60, order=4,
-           skeleton_json=REF_SKEL)
+           skeleton_json=skel_path)
     data = json.loads(out.read_text())
     assert "contacts" in data
     assert len(data["contacts"]["left"]) == 9
@@ -203,7 +230,7 @@ def _profile_channels(data):
 
 @pytest.mark.parametrize("clip", ["Idle", "Walking"])
 def test_golden_profile_roundtrip(tmp_path, clip):
-    src = json.loads(open(f"/root/reference/Game/{clip}.motionProfile.json").read())
+    src = json.loads(open(_reference(f"{clip}.motionProfile.json")).read())
     dur = float(src["duration"])
     order = int(src["order"])
     cycle = float(src["phase"]["cycle_duration"])
@@ -220,7 +247,7 @@ def test_golden_profile_roundtrip(tmp_path, clip):
     fbx.write_text(make_ascii_fbx(bones, dur, n_keys=int(dur * 240) + 1))
     out = tmp_path / "refit.json"
     FM.fit(str(fbx), str(out), clip_name=clip, fps=src["sample_fps"],
-           order=order, skeleton_json=REF_SKEL)
+           order=order, skeleton_json=_reference("YBot.skeleton.json"))
     refit = json.loads(out.read_text())
 
     assert refit["duration"] == pytest.approx(dur, rel=0.02)
@@ -251,8 +278,12 @@ def test_golden_profile_roundtrip(tmp_path, clip):
 def test_binary_fbx_curves():
     """tools/fbx.py-backed binary parsing binds mixamorig curves (the
     in-tree Y Bot.fbx carries a 2-key T-pose take)."""
-    anims, duration = FM.parse_fbx_curves_binary(
-        "/root/reference/ExternalResources/Y Bot.fbx")
+    root = os.environ.get(player_rig.REFERENCE_DIR_ENV)
+    fbx = os.path.join(root, "ExternalResources", "Y Bot.fbx") if root else ""
+    if not os.path.exists(fbx):
+        pytest.skip("reference Y Bot.fbx not available "
+                    f"(set ${player_rig.REFERENCE_DIR_ENV})")
+    anims, duration = FM.parse_fbx_curves_binary(fbx)
     assert any(n.startswith("mixamorig") for n in anims)
     hips = anims.get("mixamorig:Hips") or anims.get("mixamorig9:Hips")
     assert hips and (hips["translation"] or hips["rotation"])

@@ -254,8 +254,8 @@ def test_fps_overlay_device_matches_host():
 
 
 def test_sort_compaction_matches_chunked():
-    """rt._compacted (sort-based compaction) returns exactly what the
-    nonzero+scatter _chunked machinery produces for the same body."""
+    """rt._chunked (sort-based compaction schedule) visits exactly the set
+    lanes of the mask, each once, in <= cap-lane chunks."""
     import numpy as np
     import jax.numpy as jnp
     from swift_game_engine_tpu.render import rt as RT
@@ -266,14 +266,19 @@ def test_sort_compaction_matches_chunked():
     table = jnp.asarray(rng.random((n, 3), np.float32))
     default = jnp.asarray(rng.random((n, 3), np.float32))
 
-    def body2(idx, valid):
+    def body2(idx, valid, carry):
+        out, visits = carry
         safe = jnp.minimum(idx, n - 1)
-        return (table[safe] * 2.0 + 1.0,)
+        out = out.at[idx].set(table[safe] * 2.0 + 1.0)
+        return out, visits.at[idx].add(1)
 
-    got = RT._compacted(mask, body2, (default,), cap=128)[0]
+    visits0 = jnp.zeros(n, jnp.int32)
+    got, visits = RT._chunked(mask, body2, (default, visits0), cap=128)
     expect = jnp.where(mask[:, None], table * 2.0 + 1.0, default)
     assert np.allclose(np.asarray(got), np.asarray(expect))
+    assert np.array_equal(np.asarray(visits), np.asarray(mask, np.int32))
 
     # empty mask: zero iterations, defaults pass through
-    got0 = RT._compacted(jnp.zeros(n, bool), body2, (default,), cap=128)[0]
+    got0, _ = RT._chunked(jnp.zeros(n, bool), body2, (default, visits0),
+                          cap=128)
     assert np.array_equal(np.asarray(got0), np.asarray(default))

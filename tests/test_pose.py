@@ -1,27 +1,26 @@
-"""Pose engine parity vs the NumPy oracle (reference semantics)."""
+"""Pose engine parity vs the NumPy oracle (reference semantics), on the
+DemoScene player rig (assets.player_rig: the reference's files when
+available, else the derived rig with synthetic profiles)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from swift_game_engine_tpu.assets.skeleton import load_skeleton
-from swift_game_engine_tpu.assets.motion_profile import load_motion_profile, pack_profile
+from swift_game_engine_tpu.assets.motion_profile import pack_profile
+from swift_game_engine_tpu.assets.player_rig import load_player_rig
 from swift_game_engine_tpu.anim import pose as P
 
 import oracle_pose as O
 
 pytestmark = pytest.mark.fast
 
-REF = "/root/reference/Game"
-
-
 @pytest.fixture(scope="module")
 def setup():
-    sk = load_skeleton(f"{REF}/YBot.skeleton.json")
-    profiles = [load_motion_profile(f"{REF}/{n}.motionProfile.json")
-                for n in ("Idle", "Walking", "Running", "FallingIdle")]
-    action = load_motion_profile(f"{REF}/StandingDodgeBackward.motionProfile.json")
+    sk, profs = load_player_rig()
+    profiles = [profs[n] for n in ("Idle", "Walking", "Running",
+                                   "FallingIdle")]
+    action = profs["StandingDodgeBackward"]
     eng = P.PoseEngine(sk)
     bank = eng.make_bank(*[pack_profile(p, sk) for p in profiles])
     act = eng.make_action(pack_profile(action, sk))

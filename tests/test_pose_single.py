@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from swift_game_engine_tpu.assets.skeleton import load_skeleton
-from swift_game_engine_tpu.assets.motion_profile import load_motion_profile, pack_profile
+from swift_game_engine_tpu.assets.motion_profile import pack_profile
+from swift_game_engine_tpu.assets.player_rig import load_player_rig
 from swift_game_engine_tpu.anim import pose as P
 from swift_game_engine_tpu.assets import nputil
 
@@ -14,12 +14,9 @@ import oracle_pose as O
 
 pytestmark = pytest.mark.fast
 
-REF = "/root/reference/Game"
-
-
 def test_single_profile_matches_oracle():
-    sk = load_skeleton(f"{REF}/YBot.skeleton.json")
-    prof = load_motion_profile(f"{REF}/Walking.motionProfile.json")
+    sk, profiles = load_player_rig()
+    prof = profiles["Walking"]
     packed = pack_profile(prof, sk)
     eng = P.PoseEngine(sk)
     eng.order = packed.order

@@ -1,14 +1,8 @@
 """Refraction-path behavior tests (reference RayTracing.metalinc:544-713).
 
-The transmission > 0 bounce was previously untested (VERDICT r4 weak #4):
-eta flip direction, TIR gate, Fresnel mix bounds, and a see-through frame
-behavior test, plus a trace-vs-hybrid parity subprocess run so the bounce
-machinery restructure can't silently regress it.
+The transmission > 0 bounce: eta flip direction, TIR gate, Fresnel mix
+bounds, and a see-through frame behavior test.
 """
-
-import os
-import subprocess
-import sys
 
 import numpy as np
 import jax
@@ -17,8 +11,6 @@ import pytest
 
 from swift_game_engine_tpu.render.shading import refract
 from swift_game_engine_tpu.render.rt import refraction_setup
-
-REPO = os.path.join(os.path.dirname(__file__), "..")
 
 pytestmark = pytest.mark.fast
 
@@ -141,58 +133,3 @@ def test_fresnel_mix_bounds():
     eps = 0.15  # wall's 0.1 red/blue emissive floor + dither
     assert (c_thr[..., 0] <= c_blk[..., 0] + eps).all()
     assert (c_thr[..., 2] <= c_blk[..., 2] + eps).all()
-
-
-PARITY_CODE = r"""
-import os
-os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["SGE_JAX_TRAVERSAL"] = os.environ["TEST_JAXTRAV"]
-os.environ["SGE_RT_PRIMARY"] = os.environ["TEST_PRIMARY"]
-import numpy as np
-import jax.numpy as jnp
-import sys
-sys.path.insert(0, os.environ["TEST_REPO"])
-sys.path.insert(0, os.path.join(os.environ["TEST_REPO"], "tests"))
-from test_refraction import _pane_scene
-from swift_game_engine_tpu.render import rt as RT
-from swift_game_engine_tpu.render.ibl import IBL
-W, H = 64, 32
-geo, fg, cam = _pane_scene(1.0, ior=1.1)
-lights = RT.DirectionalLights.default_sun()
-img = RT.render_frame(geo, fg, IBL.build(), lights,
-                      jnp.asarray(cam.inv_view_proj(W, H)),
-                      jnp.asarray(cam.position), W, H, max_layers=2,
-                      shadow_layers=1, enable_mirror=False,
-                      enable_refraction=True,
-                      view_proj=jnp.asarray(cam.view_proj(W, H)))
-np.save(os.environ["TEST_OUT"], np.asarray(img))
-print("DONE")
-"""
-
-
-@pytest.mark.slow
-def test_refraction_parity_trace_vs_hybrid(tmp_path):
-    """Pure-JAX traced frame vs the production hybrid + Pallas(interpret)
-    frame on a transmissive scene: the refraction machinery downstream of
-    visibility must agree except at sub-pixel raster/trace edges."""
-    def run(jaxtrav, primary, out):
-        env = dict(os.environ)
-        env["PYTHONPATH"] = REPO
-        env["TEST_REPO"] = REPO
-        env["TEST_JAXTRAV"] = jaxtrav
-        env["TEST_PRIMARY"] = primary
-        env["TEST_OUT"] = out
-        proc = subprocess.run([sys.executable, "-c", PARITY_CODE], cwd=REPO,
-                              env=env, capture_output=True, text=True,
-                              timeout=1800)
-        assert proc.returncode == 0, proc.stderr + proc.stdout
-
-    a = str(tmp_path / "trace.npy")
-    b = str(tmp_path / "hybrid.npy")
-    run("1", "trace", a)
-    run("0", "hybrid", b)
-    ia, ib = np.load(a), np.load(b)
-    diff = np.abs(ia - ib).max(axis=-1)
-    frac_same = float((diff < 1e-3).mean())
-    assert frac_same > 0.97, frac_same
-    assert abs(ia.mean() - ib.mean()) < 0.02 * max(ia.mean(), 1e-3)

@@ -56,7 +56,7 @@ def test_half_scale_approximates_full(scene):
 
 
 def test_runtime_scale_change(scene):
-    """Round 5 (VERDICT r4 missing #3): changing rtResolutionScale at
+    """Changing rtResolutionScale at
     runtime rebuilds the frame program for the new RT size (lazily, cached
     per size) without constructing a new Engine — the reference reallocates
     its RT target when the scene's scale changes (Renderer.swift:232-258)."""
